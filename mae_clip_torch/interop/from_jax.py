@@ -1,0 +1,78 @@
+"""JAX/flax parameter tree -> the port's ``state_dict``.
+
+``state_dict_from_flax`` takes the JAX package's ``CLIPModel`` params as a
+nested dict of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``;
+the JAX package is not imported here) and returns the port's state_dict:
+image encoder, MAE decoder and ``mask_token``, both projection heads and the
+``logit_*`` scalars. Dense kernels ``(in, out)`` become torch weights
+``(out, in)``; LayerNorm ``scale`` and table ``embedding`` become ``weight``.
+Module names follow timm/HF as the JAX package's exporter does
+(``block_3/attn_qkv`` -> ``blocks.3.attn.qkv``, ``layer_0/ffn_lin1`` ->
+``transformer.layer.0.ffn.lin1``).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from mae_clip_torch.config import Config
+from mae_clip_torch.models.distilbert import DistilBertConfig
+
+_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+_MODULES = [
+    (re.compile(r"^decoder_block_(\d+)$"), r"decoder_blocks.\1"),
+    (re.compile(r"^block_(\d+)$"), r"blocks.\1"),
+    (re.compile(r"^layer_(\d+)$"), r"transformer.layer.\1"),
+    (re.compile(r"^attn_(qkv|proj|q|kv)$"), r"attn.\1"),
+    (re.compile(r"^mlp_(fc1|fc2)$"), r"mlp.\1"),
+    (re.compile(r"^ffn_(lin1|lin2)$"), r"ffn.\1"),
+]
+
+
+def _module_name(name: str) -> str:
+    for pattern, repl in _MODULES:
+        if pattern.match(name):
+            return pattern.sub(repl, name)
+    return name
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, Any]):
+    for name, node in tree.items():
+        if isinstance(node, Mapping):
+            _flatten(node, prefix + _module_name(name) + ".", out)
+            continue
+        arr = np.asarray(node, dtype=np.float32)
+        if name == "kernel":
+            arr = arr.T
+        out[prefix + _LEAVES.get(name, name)] = torch.from_numpy(
+            np.array(arr, order="C"))  # a writable copy, 0-d kept 0-d
+
+
+def state_dict_from_flax(params: Mapping[str, Any], cfg: Config,
+                         text_config: DistilBertConfig = DistilBertConfig(),
+                         vit_config=None) -> Dict[str, torch.Tensor]:
+    """Convert a flax ``CLIPModel`` param tree (``variables`` or
+    ``variables["params"]``) for the port's ``CLIPModel(cfg, text_config,
+    vit_config)``. Raises if a key or a shape differs from that model's."""
+    from mae_clip_torch.models.clip import CLIPModel
+
+    if "params" in params:
+        params = params["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    _flatten(params, "", sd)
+    with torch.device("meta"):
+        want = CLIPModel(cfg, text_config, vit_config,
+                         device="meta").state_dict()
+    missing, extra = sorted(set(want) - set(sd)), sorted(set(sd) - set(want))
+    if missing or extra:
+        raise KeyError(f"param trees differ: missing {missing[:8]}, "
+                       f"unexpected {extra[:8]}")
+    for k, v in sd.items():
+        if v.shape != want[k].shape:
+            raise ValueError(f"{k}: shape {tuple(v.shape)} != "
+                             f"{tuple(want[k].shape)}")
+    return sd

@@ -1,0 +1,132 @@
+"""Dual-tower CLIP model, inference part (``mae_clip_tpu/models/clip.py``).
+
+Image tower -> ProjectionHead(384/768 -> projection_dim), DistilBERT CLS ->
+ProjectionHead(768 -> projection_dim). With MAE enabled the image tower is a
+``MAEViT`` and ``encode_image`` runs its full-sequence pass. The SigLIP
+(``logit_scale`` + ``logit_bias``) and learnable-temperature
+(``logit_scale``) parameters are created as in the JAX package, for
+zero-shot scoring. The ResNet50 tower and the losses are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from mae_clip_torch.config import Config
+from mae_clip_torch.device import resolve_device
+from mae_clip_torch.models.distilbert import DistilBertConfig, TextEncoder
+from mae_clip_torch.models.layers import dtype_of
+from mae_clip_torch.models.mae import MAEDecoderConfig, MAEViT
+from mae_clip_torch.models.projection import ProjectionHead
+from mae_clip_torch.models.vit import (ViTConfig, ViTEncoder,
+                                       _resolved_vit_config)
+
+
+def mae_vit_for(cfg: Config, vit_config: Optional[ViTConfig] = None
+                ) -> MAEViT:
+    """MAEViT with the geometry ``CLIPModel`` embeds when MAE is enabled."""
+    if not cfg.mae.enabled:
+        raise ValueError("mae_vit_for requires cfg.mae.enabled")
+    dec = MAEDecoderConfig(dim=cfg.mae.decoder_dim,
+                           depth=cfg.mae.decoder_depth,
+                           n_heads=cfg.mae.decoder_heads,
+                           gelu=cfg.mae.decoder_gelu)
+    return MAEViT(_resolved_vit_config(cfg, vit_config), decoder=dec,
+                  mask_ratio=cfg.mae.mask_ratio,
+                  decoder_style=cfg.mae.decoder_style,
+                  dtype=dtype_of(cfg.compute_dtype))
+
+
+class CLIPModel(nn.Module):
+    """Embedding entry points of the CLIP model (eval mode)."""
+
+    def __init__(self, cfg: Config,
+                 text_config: DistilBertConfig = DistilBertConfig(),
+                 vit_config: Optional[ViTConfig] = None,
+                 device: str = "cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        if dtype_of(cfg.param_dtype) != torch.float32:
+            raise ValueError("the port keeps fp32 parameters")
+        dtype = dtype_of(cfg.compute_dtype)
+
+        if cfg.gelu_impl is not None:
+            text_config = dataclasses.replace(text_config, gelu=cfg.gelu_impl)
+        if cfg.text_heads is not None and text_config.dim % cfg.text_heads == 0:
+            text_config = dataclasses.replace(text_config,
+                                              n_heads=cfg.text_heads)
+        self.text_config, self.vit_config = text_config, vit_config
+
+        if cfg.model_name == "resnet50":
+            raise NotImplementedError("the ResNet50 image tower is not ported")
+        vcfg = _resolved_vit_config(cfg, vit_config)
+        self.image_encoder = (mae_vit_for(cfg, vcfg) if cfg.mae.enabled
+                              else ViTEncoder(vcfg, dtype))
+        self.text_encoder = TextEncoder(text_config, dtype)
+        self.image_projection = ProjectionHead(vcfg.dim, cfg.projection_dim,
+                                               cfg.dropout, dtype)
+        self.text_projection = ProjectionHead(text_config.dim,
+                                              cfg.projection_dim,
+                                              cfg.dropout, dtype)
+        if cfg.contrastive_loss == "siglip":
+            # arXiv:2303.15343 section 4: t' = log 10, b = -10 at init.
+            self.logit_scale = nn.Parameter(torch.tensor(math.log(10.0)))
+            self.logit_bias = nn.Parameter(torch.tensor(-10.0))
+        elif cfg.learnable_temperature:
+            self.logit_scale = nn.Parameter(
+                torch.tensor(math.log(1.0 / cfg.temperature)))
+        self.to(device)
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.text_projection.fc.weight.device
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "CLIPModel":
+        """Random init from ``generator`` (a CPU generator, so one seed gives
+        the same weights on every device), with the JAX package's schemes:
+        linear weights normal(0, 1/sqrt(fan_in)), zero biases, unit/zero
+        LayerNorms, normal(0, 0.02) tables and tokens. The logit scalars
+        keep their fixed initial values."""
+        def normal(shape, std):
+            return torch.randn(shape, generator=generator) * std
+
+        for mod in self.modules():
+            if isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.Linear):
+                mod.weight.copy_(normal(mod.weight.shape,
+                                        mod.in_features ** -0.5))
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.Embedding):
+                mod.weight.copy_(normal(mod.weight.shape, 0.02))
+            else:  # cls/mask tokens and learned positions
+                for name, p in mod.named_parameters(recurse=False):
+                    if not name.startswith("logit_"):
+                        p.copy_(normal(p.shape, 0.02))
+        return self
+
+    def encode_image(self, images: torch.Tensor) -> torch.Tensor:
+        """Image features before projection; the full pass for MAE towers."""
+        if self.cfg.mae.enabled:
+            return self.image_encoder.encode_full(images)
+        return self.image_encoder(images)
+
+    def encode_text(self, input_ids: torch.Tensor,
+                    attention_mask: torch.Tensor) -> torch.Tensor:
+        return self.text_encoder(input_ids, attention_mask)
+
+    def project_image(self, feats: torch.Tensor) -> torch.Tensor:
+        return self.image_projection(feats)
+
+    def project_text(self, feats: torch.Tensor) -> torch.Tensor:
+        return self.text_projection(feats)

@@ -1,0 +1,77 @@
+"""Primitive layers with the JAX package's math (``mae_clip_tpu/models/layers.py``).
+
+* ``Dense`` keeps its fp32 weight in torch's ``(out, in)`` layout, casts the
+  input and the weight to the compute dtype, and returns the compute dtype.
+* ``LayerNorm`` takes its statistics in fp32 with biased variance, like
+  ``torch.nn.LayerNorm``; the eps is chosen per call site (1e-6 ViT/MAE,
+  1e-12 DistilBERT, 1e-5 projection head) and the output is in the compute
+  dtype.
+* ``gelu``: ``"erf"`` is torch's exact GELU, ``"tanh"`` the approximation.
+* ``Embed``: a token table whose lookup is cast to the compute dtype.
+
+Parameters are fp32; the compute dtype comes from ``Config.compute_dtype``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16, "float64": torch.float64}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+def gelu(x: torch.Tensor, kind: str = "erf") -> torch.Tensor:
+    if kind == "erf":
+        return F.gelu(x)
+    if kind == "tanh":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown gelu {kind!r}")
+
+
+class Dense(nn.Linear):
+    """``y = x @ W.T + b`` in the compute dtype; W is (out, in), fp32."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with fp32 statistics; output in the compute dtype."""
+
+    def __init__(self, dim: int, eps: float,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(dim, eps=eps)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out_dtype = self.compute_dtype or x.dtype
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                         self.bias, self.eps)
+        return y.to(out_dtype)
+
+
+class Embed(nn.Embedding):
+    """Token table (num_embeddings, dim); the lookup is cast to ``dtype``."""
+
+    def __init__(self, num_embeddings: int, dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(num_embeddings, dim)
+        self.compute_dtype = dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return super().forward(ids).to(self.compute_dtype)

@@ -1,0 +1,190 @@
+"""Vision Transformer image tower (``mae_clip_tpu/models/vit.py``).
+
+Images are NHWC ``(B, H, W, C)`` or pre-patchified ``(B, N, P*P*C)`` (row-major
+patch order, channel minor), as in the JAX package. Patch embedding is one
+matmul over the patch rows. Blocks are pre-LN; each block's fused qkv output
+``(B, S, 3*H*Dh)`` goes straight to ``fused_qkv_attention``, which runs the
+packed-qkv CUDA kernel on the card.
+
+Parameter names follow timm's VisionTransformer (``blocks.{i}.attn.qkv``,
+``blocks.{i}.mlp.fc1``, ...), except that ``patch_embed.proj`` is a linear
+weight ``(D, P*P*C)`` and not timm's conv weight ``(D, C, P, P)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from mae_clip_torch.config import Config
+from mae_clip_torch.models.layers import Dense, LayerNorm, gelu
+from mae_clip_torch.ops.attention import fused_qkv_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    image_size: int = 224
+    patch_size: int = 16
+    dim: int = 384
+    depth: int = 12
+    n_heads: int = 6
+    mlp_ratio: float = 4.0
+    dropout: float = 0.0
+    pos_embed: str = "learned"   # "learned" (timm-compatible) | "sincos" (MAE)
+    pool: str = "cls"            # "cls" | "mean"
+    gelu: str = "erf"            # "erf" | "tanh"
+
+    @property
+    def grid_size(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid_size ** 2
+
+
+VIT_S16 = ViTConfig(dim=384, depth=12, n_heads=6)
+VIT_B16 = ViTConfig(dim=768, depth=12, n_heads=12)
+
+
+def vit_config_for(cfg: Config) -> ViTConfig:
+    base = {"vit_s16": VIT_S16, "vit_b16": VIT_B16}[cfg.model_name]
+    pos = "sincos" if cfg.mae.enabled else base.pos_embed
+    return dataclasses.replace(base, image_size=cfg.size, pos_embed=pos)
+
+
+def _resolved_vit_config(cfg: Config,
+                         vit_config: Optional[ViTConfig]) -> ViTConfig:
+    """Apply cfg's gelu/head-geometry overrides to the ViT tower config
+    (an explicitly passed custom geometry keeps its own head count)."""
+    vcfg = vit_config if vit_config is not None else vit_config_for(cfg)
+    if cfg.gelu_impl is not None:
+        vcfg = dataclasses.replace(vcfg, gelu=cfg.gelu_impl)
+    if (vit_config is None and cfg.image_heads is not None
+            and vcfg.dim % cfg.image_heads == 0):
+        vcfg = dataclasses.replace(vcfg, n_heads=cfg.image_heads)
+    return vcfg
+
+
+def sincos_pos_embed_2d(dim: int, grid_size: int,
+                        cls_token: bool = False) -> np.ndarray:
+    """Fixed 2D sine-cosine positional embeddings (MAE paper, appendix)."""
+    if dim % 4:
+        raise ValueError(f"sincos embedding needs dim % 4 == 0, got {dim}")
+    pos = np.arange(grid_size, dtype=np.float64)
+    omega = np.arange(dim // 4, dtype=np.float64) / (dim / 4.0)
+    omega = 1.0 / 10000 ** omega
+    out = np.einsum("p,d->pd", pos, omega)
+    emb_1d = np.concatenate([np.sin(out), np.cos(out)], axis=1)  # (g, dim/2)
+    emb_h = np.repeat(emb_1d[:, None, :], grid_size, axis=1)
+    emb_w = np.repeat(emb_1d[None, :, :], grid_size, axis=0)
+    emb = np.concatenate([emb_h, emb_w], axis=-1).reshape(-1, dim)
+    if cls_token:
+        emb = np.concatenate([np.zeros((1, dim)), emb], axis=0)
+    return emb.astype(np.float32)
+
+
+def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """(B, H, W, C) NHWC -> (B, N, P*P*C) patches, row-major patch order."""
+    b, h, w, c = images.shape
+    p = patch_size
+    gh, gw = h // p, w // p
+    x = images.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, gh * gw, p * p * c)
+
+
+class PatchEmbed(nn.Module):
+    """Patchify + linear projection (== a stride-P conv), as one matmul."""
+
+    def __init__(self, config: ViTConfig, channels: int = 3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.config = config
+        p = config.patch_size
+        self.proj = Dense(p * p * channels, config.dim, dtype)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        patches = (images if images.dim() == 3
+                   else patchify(images, self.config.patch_size))
+        return self.proj(patches)
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, n_heads: int, dtype: torch.dtype):
+        super().__init__()
+        self.n_heads = n_heads
+        self.qkv = Dense(dim, 3 * dim, dtype)
+        self.proj = Dense(dim, dim, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dh = x.shape[-1] // self.n_heads
+        ctx = fused_qkv_attention(self.qkv(x), self.n_heads,
+                                  sm_scale=1.0 / dh ** 0.5)
+        return self.proj(ctx)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int, kind: str, dtype: torch.dtype):
+        super().__init__()
+        self.kind = kind
+        self.fc1 = Dense(dim, hidden, dtype)
+        self.fc2 = Dense(hidden, dim, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(gelu(self.fc1(x), self.kind))
+
+
+class ViTBlock(nn.Module):
+    """Pre-LN block: x + attn(norm1(x)), then x + mlp(norm2(x))."""
+
+    def __init__(self, config: ViTConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        c = config
+        self.norm1 = LayerNorm(c.dim, 1e-6, dtype)
+        self.attn = Attention(c.dim, c.n_heads, dtype)
+        self.norm2 = LayerNorm(c.dim, 1e-6, dtype)
+        self.mlp = Mlp(c.dim, int(c.dim * c.mlp_ratio), c.gelu, dtype)
+        self.mlp_drop = nn.Dropout(c.dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp_drop(self.mlp(self.norm2(x)))
+
+
+class ViTEncoder(nn.Module):
+    """Full-sequence ViT encoder producing a pooled feature vector."""
+
+    def __init__(self, config: ViTConfig = VIT_S16,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        c = self.config = config
+        self.dtype = dtype
+        self.patch_embed = PatchEmbed(c, dtype=dtype)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, c.dim))
+        if c.pos_embed == "learned":
+            self.pos_embed = nn.Parameter(torch.zeros(1, c.num_patches + 1,
+                                                      c.dim))
+        else:
+            self.register_buffer("sincos", torch.from_numpy(
+                sincos_pos_embed_2d(c.dim, c.grid_size, cls_token=True))[None],
+                persistent=False)
+        self.blocks = nn.ModuleList(ViTBlock(c, dtype) for _ in range(c.depth))
+        self.norm = LayerNorm(c.dim, 1e-6, dtype)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = self.patch_embed(images)
+        b = x.shape[0]
+        cls = self.cls_token.expand(b, -1, -1).to(x.dtype)
+        x = torch.cat([cls, x], dim=1)
+        pe = self.pos_embed if self.config.pos_embed == "learned" else self.sincos
+        x = x + pe.to(x.dtype)
+        for block in self.blocks:
+            x = block(x)
+        x = self.norm(x)
+        if self.config.pool == "cls":
+            return x[:, 0]
+        return x[:, 1:].mean(dim=1)
