@@ -3,14 +3,25 @@
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``mae_clip_torch/csrc``, holds each
-against its plain PyTorch version on the card, serves the flagship model
-(ViT-S/16 + DistilBERT, random seeded weights, bf16) over HTTP through the
-port's entry points, checks what comes back, checks the card's embeddings
-against the CPU's plain path, and times each kernel beside its bound. Any
-failed check raises, so the run exits non-zero. The last line of standard
-output is ``{"ok": true, "device": {...}}``; before it come the
-``{"kernels": [...]}`` summary and the card's name and power limit.
+It builds the port's CUDA kernels from ``mae_clip_torch/csrc`` (one nvcc per
+source, started together) and holds each kernel, forward and backward,
+against its plain PyTorch version on the card. Then it drives the port's two
+paths through their entry points, each with the kernels' launch counts set to
+0 just before and read just after:
+
+* serving (slice 1): the flagship model (ViT-S/16 + DistilBERT, random
+  seeded weights, bf16) over HTTP, with the card's embeddings checked
+  against the CPU's plain path;
+* training (slice 2): the flagship CLIP+CrossMAE training step at batch 256
+  (cached frozen-text features, uint8 patches normalised in the step, AdamW),
+  checked for a falling loss, moving trainable and fixed frozen weights, and
+  against one step on the CPU.
+
+Last, it times each kernel at the training shapes beside its bound, its
+plain version and the PyTorch call that computes the same thing. Any failed
+check raises, so the run exits non-zero. The last line of standard output is
+``{"ok": true, "device": {...}}``; before it come the ``{"kernels": [...]}``
+summary and the card's name and power limit.
 
 It imports nothing of JAX and nothing of the JAX package. It exits non-zero,
 printing no result, when no CUDA card is present.
@@ -31,6 +42,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
+DEVICE = torch.device("cuda")
 FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_ATOL = 2e-2
 
@@ -42,6 +54,13 @@ def log(*a) -> None:
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def clock_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
 
@@ -62,6 +81,7 @@ def build_kernels() -> None:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {src}: {line.strip()}")
     _build.load_attention()
+    _build.load_attention_bwd()
 
 
 # ---------------------------------------------------------------------------
@@ -99,10 +119,10 @@ def check_kernels() -> dict:
     gen = torch.Generator().manual_seed(0)
     worst = {"qkv_packed_attention": 0.0, "flash_attention": 0.0}
 
-    def run(name, fn, ref, inputs):
+    def run(name, fn, ref, make):
+        """``make(dtype)`` gives the inputs, floating tensors in ``dtype``."""
         for dt in (torch.float32, torch.bfloat16):
-            xs = [x.to(dt) if x is not None and x.is_floating_point()
-                  and x.dim() > 2 else x for x in inputs]
+            xs = make(dt)
             got = fn(*xs)
             torch.cuda.synchronize()
             want = ref(*[x.float() if x is not None and x.dim() > 2 else x
@@ -116,39 +136,149 @@ def check_kernels() -> dict:
                 f"max abs err {err:.3e}")
 
     # Packed qkv: the ViT-S/16 flagship block (3 heads of 128, S=197) at
-    # B=64, and a masked case at S=50 (the masked encoder pass's length).
-    for b, s, h, masked in ((64, 197, 3, False), (8, 50, 3, True)):
+    # B=64, the training step's masked encoder pass (CLS + 49 visible
+    # tokens) at B=256 with no mask, and a padding mask at S=50.
+    for b, s, h, masked in ((64, 197, 3, False), (256, 50, 3, False),
+                            (8, 50, 3, True)):
         qkv = torch.randn(b, s, 3 * h * 128, generator=gen).to(dev)
         kv = _padding_mask(gen, b, s, dev) if masked else None
         run("qkv_packed_attention",
             lambda x, m, h=h: A.qkv_packed_attention(x, m, h),
             lambda x, m, h=h: A.qkv_packed_attention_ref(x, m, h),
-            [qkv, kv])
+            lambda dt, qkv=qkv, kv=kv: [qkv.to(dt), kv])
 
     # Flash: DistilBERT at serving (B=16, 6 heads of 128, S=64, padding
     # mask) with the head split as a strided view of a linear output, the
-    # CrossMAE decoder's cross-attention (Sq=147, Sk=50, 2x128), and S=300
-    # for several key tiles.
-    def flash_case(b, h, sq, sk, masked, strided, d=128):
-        if strided:  # (B, S, H, Dh) storage seen as (B, H, S, Dh)
-            q, k, v = (torch.randn(b, n, h, d, generator=gen).to(dev)
-                       .transpose(1, 2) for n in (sq, sk, sk))
-        else:
-            q, k, v = (torch.randn(b, h, n, d, generator=gen).to(dev)
-                       for n in (sq, sk, sk))
+    # CrossMAE decoder's cross-attention at the training step's B=256 (Sq=147,
+    # Sk=50, 2x128, no mask) in its own layout, and S=300 for several key
+    # tiles.
+    def flash_case(b, h, sq, sk, masked, layout, d=128):
         kv = _padding_mask(gen, b, sk, dev) if masked else None
-        run("flash_attention", A.flash_attention, A.flash_attention_ref,
-            [q, k, v, kv])
+        if layout == "decoder":
+            # q a (B, Sq, H, Dh) view; k/v the halves of one (B, Sk, 2, H, Dh)
+            # projection output, as CrossAttnBlock splits them (no copy).
+            q0 = torch.randn(b, sq, h, d, generator=gen).to(dev)
+            kv0 = torch.randn(b, sk, 2, h, d, generator=gen).to(dev)
 
-    flash_case(16, 6, 64, 64, True, True)
-    flash_case(16, 6, 64, 64, True, False)
-    flash_case(8, 2, 147, 50, False, False)
-    flash_case(2, 2, 300, 300, True, False)
+            def make(dt):
+                kvt = kv0.to(dt)
+                return [q0.to(dt).transpose(1, 2),
+                        kvt[:, :, 0].transpose(1, 2),
+                        kvt[:, :, 1].transpose(1, 2), kv]
+        else:
+            strided = layout == "strided"  # (B, S, H, Dh) seen as (B, H, S, Dh)
+            xs = [torch.randn(*((b, n, h, d) if strided else (b, h, n, d)),
+                              generator=gen).to(dev) for n in (sq, sk, sk)]
+
+            def make(dt):
+                return [x.to(dt).transpose(1, 2) if strided else x.to(dt)
+                        for x in xs] + [kv]
+        run("flash_attention", A.flash_attention, A.flash_attention_ref, make)
+
+    flash_case(16, 6, 64, 64, True, "strided")
+    flash_case(16, 6, 64, 64, True, "plain")
+    flash_case(256, 2, 147, 50, False, "decoder")
+    flash_case(2, 2, 300, 300, True, "plain")
     # Other head dims: 64 (tensor-core body) and 80 (the scalar body, which
     # also serves fp32 and unaligned strides).
-    flash_case(4, 2, 77, 77, True, False, d=64)
-    flash_case(2, 3, 33, 40, True, False, d=80)
+    flash_case(4, 2, 77, 77, True, "plain", d=64)
+    flash_case(2, 3, 33, 40, True, "plain", d=80)
     return worst
+
+
+def _bwd_close(name: str, got, want, dtype) -> float:
+    """fp32: atol 1e-4 / rtol 1e-4. bf16, against the plain version in fp32
+    on the same bf16 values: max abs error <= 2e-2 * max(1, max |plain|)."""
+    if dtype == torch.float32:
+        return _close(name, got, want, **FP32_TOL)
+    return _close(name, got, want,
+                  BF16_ATOL * max(1.0, float(want.abs().max())))
+
+
+def check_backward_kernels(worst: dict) -> None:
+    """The backward kernels against their plain backward versions on the
+    card, fp32 and bf16, TF32 off. One case of each goes through
+    torch.autograd.grad of the wrapper; the others call the raw entry."""
+    from mae_clip_torch.ops import attention as A
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = DEVICE
+    gen = torch.Generator().manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    def check(name, label, got, want, dt):
+        errs = [_bwd_close(f"{name} {label} {str(dt)[6:]}", x, y, dt)
+                for x, y in zip(got, want)]
+        worst[name] = max(worst.get(name, 0.0), *errs)
+        log(f"  {name} {str(dt)[6:]} {label}: max abs err {max(errs):.3e}")
+
+    # Packed (kernel #3): the step's encoder shape, a padding mask at S=50,
+    # and S=197 (several query and key tiles) through autograd.
+    for b, s, masked, autograd in ((256, 50, False, False),
+                                   (8, 50, True, False),
+                                   (16, 197, True, True)):
+        qkv0, g0 = randn(b, s, 3 * 3 * 128), randn(b, s, 3 * 128)
+        kv = _padding_mask(gen, b, s, dev) if masked else None
+        for dt in (torch.float32, torch.bfloat16):
+            qkv, g = qkv0.to(dt), g0.to(dt)
+            if autograd:
+                x = qkv.clone().requires_grad_()
+                got = torch.autograd.grad(A.qkv_packed_attention(x, kv, 3),
+                                          x, g)
+            else:
+                got = (A._launch_packed_bwd(
+                    qkv, A._mask_arg(kv, b, s, qkv.device), 3, 128 ** -0.5,
+                    g),)
+            torch.cuda.synchronize()
+            want = (A.qkv_packed_attention_bwd_ref(qkv.float(), kv, 3, None,
+                                                   g.float()),)
+            check("qkv_packed_attention_bwd",
+                  f"({b},{s},1152){' masked' if masked else ''}"
+                  f"{' autograd' if autograd else ''}", got, want, dt)
+
+    # Flash (kernel #4): the decoder's shape with its strided head views,
+    # through autograd; DistilBERT's with a mask and strided views; S=300
+    # with a fully masked row; head dims 64 and 80.
+    def flash_inputs(dt, b, h, sq, sk, d, layout):
+        if layout == "decoder":  # q of (B, Sq, H, Dh); k/v of (B, Sk, 2, H, Dh)
+            q = randn(b, sq, h, d).to(dt).transpose(1, 2)
+            kv = randn(b, sk, 2, h, d).to(dt)
+            return q, kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+        if layout == "strided":  # (B, S, H, Dh) storage seen as (B, H, S, Dh)
+            return tuple(randn(b, n, h, d).to(dt).transpose(1, 2)
+                         for n in (sq, sk, sk))
+        return tuple(randn(b, h, n, d).to(dt) for n in (sq, sk, sk))
+
+    for b, h, sq, sk, d, mask_kind, layout in (
+            (256, 2, 147, 50, 128, None, "decoder"),
+            (16, 6, 64, 64, 128, "padding", "strided"),
+            (2, 2, 300, 300, 128, "fully", "plain"),
+            (4, 2, 77, 77, 64, "padding", "plain"),
+            (2, 3, 33, 40, 80, "padding", "plain")):
+        kv = None
+        if mask_kind is not None:
+            kv = _padding_mask(gen, b, sk, dev)
+            if mask_kind == "fully":
+                kv[0] = 0
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(dt, b, h, sq, sk, d, layout)
+            g = randn(b, sq, h, d).to(dt).transpose(1, 2)
+            if layout == "decoder":
+                xs = [t.detach().requires_grad_() for t in (q, k, v)]
+                got = torch.autograd.grad(A.flash_attention(*xs, kv), xs, g)
+            else:
+                got = A._launch_flash_bwd(
+                    q, k, v, A._mask_arg(kv, b, sk, q.device), d ** -0.5, g)
+            torch.cuda.synchronize()
+            want = A.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                             kv, None, g.float())
+            check("flash_attention_bwd",
+                  f"q ({b},{h},{sq},{d}) k/v ({b},{h},{sk},{d}) {layout}"
+                  f"{'' if mask_kind is None else ' ' + mask_kind + ' mask'}"
+                  f"{' autograd' if layout == 'decoder' else ''}",
+                  got, want, dt)
 
 
 # ---------------------------------------------------------------------------
@@ -171,25 +301,42 @@ def _call_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int = 50) -> float:
-    """Device time per call: the summed durations of every CUDA kernel (and
-    copy) that ``iters`` calls run, from a torch.profiler trace, over iters.
-    Host dispatch between launches is not counted."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+SPIN_CYCLES_PER_S = 2e9  # above the H100's 1980 MHz peak SM clock
 
-    for _ in range(5):
+
+def _device_ms(fn, iters: int = 20) -> float:
+    """Device time per call, host dispatch excluded: ``iters`` calls are
+    queued behind a spin kernel (``torch.cuda._sleep``), so the card runs
+    them back to back, and timed between CUDA events recorded around them.
+    The short gaps between queued kernels count; a profiler trace, which
+    sums kernel durations, would leave them out. If the spin ended before
+    the host had queued every call (the start event has completed), the
+    card may have waited for the host: time again with a longer spin and
+    fewer calls (the launch queue holds about a thousand kernels)."""
+    for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    spin_s = 2 * (time.perf_counter() - t0) + 1e-3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(4):
+        torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+        start.record()
         for _ in range(iters):
             fn()
+        end.record()
+        queued_ahead = not start.query()
         torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if total_us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return total_us / 1e3 / iters
+        if queued_ahead:
+            return start.elapsed_time(end) / iters
+        log(f"  {iters} calls not queued within a {spin_s * 1e3:.1f} ms "
+            "spin; timing again")
+        spin_s, iters = 4 * spin_s, max(2, iters // 2)
+    raise AssertionError("the calls could not be queued ahead of the card")
 
 
 def _bound_ms(bytes_moved: float, flops: float, dtype) -> tuple:
@@ -198,7 +345,7 @@ def _bound_ms(bytes_moved: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernels() -> dict:
+def time_serving_kernels() -> dict:
     """Kernel, plain-version and library times at the serving shapes."""
     import torch.nn.functional as F
 
@@ -207,7 +354,6 @@ def time_kernels() -> dict:
     dev, dt = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator().manual_seed(1)
     out = {}
-    saved = (A.qkv_packed_attention.launches, A.flash_attention.launches)
 
     # Packed: ViT-S/16 block over a 64-image gallery batch.
     b, s, h, d = 64, 197, 3, 128
@@ -236,21 +382,119 @@ def time_kernels() -> dict:
         lambda: A.flash_attention_ref(q, k, v, kv),
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask),
         bound, by)
-    A.qkv_packed_attention.launches, A.flash_attention.launches = saved
-    for name, r in out.items():
-        log(f"  {name} [{r['shape']}]: device ms per call: kernel "
-            f"{r['ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}), "
-            f"plain {r['plain_ms']:.4f}, sdpa {r['library_ms']:.4f}; wall "
-            f"ms per call with host dispatch: kernel {r['call_ms']:.4f}, "
-            f"sdpa {r['library_call_ms']:.4f}")
+    _log_times(out)
     return out
 
 
-def _timed(shape: str, kernel, plain, library, bound: float, by: str) -> dict:
-    return dict(shape=shape, ms=_device_ms(kernel),
-                plain_ms=_device_ms(plain), library_ms=_device_ms(library),
-                call_ms=_call_ms(kernel), library_call_ms=_call_ms(library),
+def _timed(shape: str, kernel, plain, library, bound: float, by: str,
+           repeats: int = 1) -> dict:
+    """``library`` is one call, or a (forward+backward, forward) pair whose
+    difference is the backward's time. With ``repeats`` > 1 the kernel is
+    timed that many times, each over 20 calls, interleaved with the
+    library's timing; ``ms`` is the median and ``ms_runs`` all of them."""
+    runs, lib_runs = [], []
+    for _ in range(repeats):
+        runs.append(_device_ms(kernel))
+        if isinstance(library, tuple):
+            fwd_bwd, fwd = library
+            lib_runs.append(_device_ms(fwd_bwd) - _device_ms(fwd))
+        else:
+            lib_runs.append(_device_ms(library))
+    if isinstance(library, tuple):
+        library_call_ms = _call_ms(library[0]) - _call_ms(library[1])
+    else:
+        library_call_ms = _call_ms(library)
+    return dict(shape=shape, ms=float(np.median(runs)), ms_runs=runs,
+                plain_ms=_device_ms(plain),
+                library_ms=float(np.median(lib_runs)), library_ms_runs=lib_runs,
+                call_ms=_call_ms(kernel), library_call_ms=library_call_ms,
                 bound_ms=bound, bound_by=by)
+
+
+def _log_times(times: dict) -> None:
+    for name, r in times.items():
+        spread = ""
+        if len(r["ms_runs"]) > 1:
+            spread = (f" (median of {len(r['ms_runs'])}: kernel "
+                      f"{[round(x, 4) for x in r['ms_runs']]}, sdpa "
+                      f"{[round(x, 4) for x in r['library_ms_runs']]})")
+        log(f"  {name} [{r['shape']}]: device ms per call: kernel "
+            f"{r['ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}), "
+            f"plain {r['plain_ms']:.4f}, sdpa {r['library_ms']:.4f}{spread}; "
+            f"wall ms per call with host dispatch: kernel "
+            f"{r['call_ms']:.4f}, sdpa {r['library_call_ms']:.4f}")
+
+
+def _sdpa_fwd_bwd(q, k, v, g):
+    """SDPA forward + backward through autograd, and its forward alone, on
+    leaf copies of q, k, v (the yardstick of a backward kernel)."""
+    import torch.nn.functional as F
+
+    q, k, v = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v)
+
+    return (lambda: torch.autograd.grad(fwd(), (q, k, v), g), fwd)
+
+
+def time_training_kernels() -> dict:
+    """All four kernels at the flagship training step's shapes (bf16, no
+    mask): the encoder's packed qkv (256, 50, 1152) and the decoder's
+    cross-attention, q (256, 2, 147, 128) and k/v (256, 2, 50, 128). Each
+    kernel is timed 7 times (median and spread), with the SM clock read
+    before and after."""
+    import torch.nn.functional as F
+
+    from mae_clip_torch.ops import attention as A
+
+    dev, dt = DEVICE, torch.bfloat16
+    gen = torch.Generator().manual_seed(4)
+    out = {}
+    log(f"  SM clock, max SM clock before: {clock_line()}")
+
+    b, s, h, d = 256, 50, 3, 128
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(dev, dt)
+    g = torch.randn(b, s, h * d, generator=gen).to(dev, dt)
+    q, k, v = A._unpack(qkv, h)
+    g4 = g.view(b, s, h, d).transpose(1, 2)
+    elt, scale = qkv.element_size(), d ** -0.5
+    flops = 2 * b * h * s * s * d  # one (S x S x Dh) product
+    shape = f"qkv ({b},{s},{3 * h * d}) bf16, {h} heads, no mask"
+    out["qkv_packed_attention"] = _timed(
+        shape, lambda: A.qkv_packed_attention(qkv, None, h),
+        lambda: A.qkv_packed_attention_ref(qkv, None, h),
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        *_bound_ms((qkv.numel() + g.numel()) * elt, 2 * flops, dt), repeats=7)
+    out["qkv_packed_attention_bwd"] = _timed(
+        shape + ", d_out (256,50,384)",
+        lambda: A._launch_packed_bwd(qkv, None, h, scale, g),
+        lambda: A.qkv_packed_attention_bwd_ref(qkv, None, h, scale, g),
+        _sdpa_fwd_bwd(q, k, v, g4),
+        *_bound_ms((2 * qkv.numel() + g.numel()) * elt, 5 * flops, dt), repeats=7)
+
+    b, h, sq, sk = 256, 2, 147, 50
+    q = torch.randn(b, sq, h, d, generator=gen).to(dev, dt).transpose(1, 2)
+    kv = torch.randn(b, sk, 2, h, d, generator=gen).to(dev, dt)
+    k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    g = torch.randn(b, sq, h, d, generator=gen).to(dev, dt).transpose(1, 2)
+    flops = 2 * b * h * sq * sk * d
+    moved = (q.numel() + k.numel() + v.numel()) * elt
+    shape = (f"q ({b},{h},{sq},{d}) k/v ({b},{h},{sk},{d}) bf16, strided "
+             f"head views, no mask")
+    out["flash_attention"] = _timed(
+        shape, lambda: A.flash_attention(q, k, v),
+        lambda: A.flash_attention_ref(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        *_bound_ms(moved + q.numel() * elt, 2 * flops, dt), repeats=7)
+    out["flash_attention_bwd"] = _timed(
+        shape, lambda: A._launch_flash_bwd(q, k, v, None, scale, g),
+        lambda: A.flash_attention_bwd_ref(q, k, v, None, scale, g),
+        _sdpa_fwd_bwd(q, k, v, g),
+        *_bound_ms(2 * moved + q.numel() * elt, 5 * flops, dt), repeats=7)
+    log(f"  SM clock, max SM clock after: {clock_line()}")
+    _log_times(out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -352,10 +596,34 @@ def stage_breakdown(service, queries) -> dict:
         batched_call_ms=_median_ms(lambda: service._retrieve_many(items)))
 
 
-def profile_window(fn) -> dict:
+def profile_window(fn, top: int = 6, spans=(), check=None,
+                   tries: int = 3) -> dict:
     """Device busy time over one call of ``fn``, from a torch.profiler
     trace: the sum of CUDA kernel times over the call's host wall time, and
-    the kernels that take most of it."""
+    the ``top`` kernels that take most of it. For each record_function span
+    named in ``spans``: its host ms (summed over its occurrences) and the
+    device ms of the kernels launched under it from the calling thread.
+
+    The profiler now and then hands back a trace without the card's events,
+    so a trace with no kernel, or one that ``check`` (which raises
+    AssertionError) refuses, is taken again, up to ``tries`` calls of
+    ``fn`` in all; the last refusal is raised."""
+    for attempt in range(1, tries + 1):
+        window = _profile_once(fn, top, spans)
+        try:
+            if not window["kernel_launches"]:
+                raise AssertionError("the profiler recorded no device time")
+            if check is not None:
+                check(window)
+            return window
+        except AssertionError as e:
+            if attempt == tries:
+                raise
+            log(f"  profiler trace {attempt} of {tries} refused ({e}); "
+                "tracing again")
+
+
+def _profile_once(fn, top: int, spans) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -365,16 +633,38 @@ def profile_window(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # record_function spans (the step's, the optimizer's) also show on the
+    # device's timeline as user annotations; they are not kernels.
+    events = prof.events()
+
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith(("Optimizer.", "train_step."))]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    span_ms = {}
+    for name in spans:
+        hits = [e for e in events
+                if e.name == name and e.device_type == DeviceType.CPU]
+        # The span's extent on the device's timeline (its first kernel's
+        # start to its last kernel's end): the stream runs in order, so the
+        # kernels that start inside it are the span's.
+        extents = [(e.time_range.start, e.time_range.end) for e in events
+                   if e.name == name and e.device_type == DeviceType.CUDA]
+        span_ms[name] = dict(
+            count=len(hits), device_count=len(extents),
+            host_ms=sum(e.cpu_time_total for e in hits) / 1e3,
+            device_ms=sum(k.device_time_total for k in kernels
+                          if any(a <= k.time_range.start < b
+                                 for a, b in extents)) / 1e3)
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 busy_share=busy_ms / wall_ms if busy_ms else None,
                 kernel_launches=len(kernels),
-                top_kernels_ms={k[:60]: round(v, 4) for k, v in top})
+                top_kernels_ms={k[:60]: round(v, 4) for k, v in top},
+                spans=span_ms)
 
 
 def serve_flagship(model, rng: np.random.Generator) -> dict:
@@ -518,55 +808,319 @@ def check_against_cpu(model, rng: np.random.Generator) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the flagship training step at batch 256
+# ---------------------------------------------------------------------------
 
-KERNELS = {
-    "qkv_packed_attention": "mae_clip_tpu/ops/attention.py:303",
-    "flash_attention": "mae_clip_tpu/ops/attention.py:76",
+TRAIN_BATCH = 256
+TRAIN_SEQ = 64       # caption length of the cached text features (bench.py)
+# Kernel launches per step: 12 encoder blocks (packed qkv) and 4 CrossMAE
+# decoder blocks (flash), forward and backward; the text tower is cached.
+LAUNCHES_PER_STEP = {"qkv_packed_attention": 12,
+                     "qkv_packed_attention_bwd": 12,
+                     "flash_attention": 4, "flash_attention_bwd": 4}
+
+
+class Captions:
+    """The two arrays ``precompute_text_features`` reads."""
+
+    def __init__(self, input_ids: np.ndarray, attention_mask: np.ndarray):
+        self.input_ids, self.attention_mask = input_ids, attention_mask
+
+
+def build_train_model(batch: int, compute_dtype: str, device: str,
+                      seed: int = 0, **cfg):
+    from mae_clip_torch import flagship_tpu_config
+    from mae_clip_torch.models import CLIPModel, DistilBertConfig
+
+    cfg = flagship_tpu_config(batch_size=batch, compute_dtype=compute_dtype,
+                              **cfg)
+    model = CLIPModel(cfg, DistilBertConfig(), device=device)
+    return model.init_weights(torch.Generator().manual_seed(seed))
+
+
+def _synced_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def train_flagship(rng: np.random.Generator) -> tuple:
+    """``make_train_step`` on the flagship model at batch 256, bf16: text
+    features cached once by the frozen tower, uint8 patches (B, 196, 768) in
+    two batches cycled. Checks the loss falls over 10 steps on one batch,
+    the trainable weights move and the frozen ones do not, and every kernel
+    launches as often per step as the model has blocks."""
+    from mae_clip_torch.train import (TrainState, make_optimizer,
+                                      make_train_step,
+                                      precompute_text_features)
+
+    model = build_train_model(TRAIN_BATCH, "bfloat16", "cuda")
+    cfg, dev = model.cfg, model.device
+    vocab = model.text_config.vocab_size
+    captions = Captions(
+        rng.integers(0, vocab, (2 * TRAIN_BATCH, TRAIN_SEQ)),
+        np.ones((2 * TRAIN_BATCH, TRAIN_SEQ), np.int64))
+    t0 = time.perf_counter()
+    feats = precompute_text_features(model, captions, TRAIN_BATCH)
+    text_ms = (time.perf_counter() - t0) * 1e3
+    vcfg = model.image_encoder.config
+    n_patches, patch_dim = vcfg.num_patches, vcfg.patch_size ** 2 * 3
+    batches = [{
+        "image": torch.from_numpy(rng.integers(
+            0, 256, (TRAIN_BATCH, n_patches, patch_dim), np.uint8)).to(dev),
+        "text_features": torch.from_numpy(
+            feats[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]).to(dev),
+        "valid": torch.ones(TRAIN_BATCH, dtype=torch.bool, device=dev)}
+        for i in range(2)]
+
+    opt = make_optimizer(cfg, model)
+    state = TrainState.create(model, opt, seed=0)
+    step = make_train_step(model, opt, cfg)
+    trainable = {n: p.detach().clone() for n, p in model.named_parameters()
+                 if p.requires_grad}
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    if not frozen or not all(n.startswith("text_encoder") for n in frozen):
+        raise AssertionError("the frozen parameters are not the text tower's")
+
+    steps = 0
+
+    def run(batch):
+        nonlocal steps
+        steps += 1
+        return step(state, batch)
+
+    counts = _reset_counts()
+    losses = [run(batches[0]) for _ in range(10)]
+    losses = [{k: float(v) for k, v in m.items()} for m in losses]
+    total = [m["loss"] for m in losses]
+    if not all(np.isfinite(list(m.values())).all() for m in losses):
+        raise AssertionError(f"non-finite training metrics: {losses}")
+    log(f"  loss over 10 steps on one batch: {[round(x, 4) for x in total]}")
+    if not np.mean(total[-3:]) < np.mean(total[:3]):
+        raise AssertionError(f"the loss did not fall: {total}")
+
+    for i in range(3):
+        run(batches[i % 2])
+    synced = [_synced_ms(lambda i=i: run(batches[i % 2]))
+              for i in range(20)]
+    pipelined = _synced_ms(lambda: [run(batches[i % 2])
+                                    for i in range(20)]) / 20
+    prof = profile_window(lambda: [run(batches[i % 2]) for i in range(5)],
+                          top=10, spans=STEP_SPANS,
+                          check=lambda window: step_stages(window, 5))
+    stages = step_stages(prof, 5)
+    launches = _read_counts(counts)
+    per_step = {name: n / steps for name, n in launches.items()}
+    log(f"  kernel launches on the training path ({steps} steps): "
+        f"{launches}; per step {per_step}")
+    for name, n in LAUNCHES_PER_STEP.items():
+        if launches[name] != n * steps:
+            raise AssertionError(f"{name}: {launches[name]} launches in "
+                                 f"{steps} steps, expected {n} per step")
+
+    moved = [n for n, p in model.named_parameters()
+             if p.requires_grad and not torch.equal(p.detach(), trainable[n])]
+    if len(moved) != len(trainable):
+        raise AssertionError(f"{len(trainable) - len(moved)} trainable "
+                             "tensors did not change")
+    for n, p in model.named_parameters():
+        if not p.requires_grad and not torch.equal(p.detach(), frozen[n]):
+            raise AssertionError(f"frozen {n} changed")
+
+    median = float(np.median(synced))
+    result = dict(batch=TRAIN_BATCH, text_cache_ms=text_ms,
+                  step_ms_median=median, step_ms_min=float(np.min(synced)),
+                  step_ms_pipelined=pipelined,
+                  pairs_per_s=TRAIN_BATCH / median * 1e3,
+                  pairs_per_s_pipelined=TRAIN_BATCH / pipelined * 1e3,
+                  last_metrics={k: float(v) for k, v in
+                                step(state, batches[0]).items()},
+                  profile_5_steps=prof, launches=launches,
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  step ms (each synchronised, median of 20) {median:.3f}, min "
+        f"{result['step_ms_min']:.3f}; 20 steps back to back "
+        f"{pipelined:.3f} ms per step; pairs/s {result['pairs_per_s']:.1f} "
+        f"(back to back {result['pairs_per_s_pipelined']:.1f}); text cache "
+        f"of {2 * TRAIN_BATCH} captions {text_ms:.1f} ms; peak memory "
+        f"{result['peak_memory_gb']:.2f} GB")
+    result["stages"] = stages
+    log(f"  profiled 5 steps: {json.dumps(prof)}")
+    log(f"  stages of one step (mean of the 5 profiled steps): "
+        f"{json.dumps(stages)}")
+    return launches, result
+
+
+# make_train_step's spans, and the one torch.optim gives every step.
+STEP_SPANS = ("train_step.forward", "train_step.backward",
+              "Optimizer.step#AdamW.step")
+
+
+def step_stages(prof: dict, steps: int) -> dict:
+    """Per step, from ``make_train_step``'s own spans in a profiled window:
+    each stage's host ms (the profiler's overhead included), and its device
+    ms. The autograd engine launches the backward's kernels from its own
+    thread, outside the span, so the backward's device ms is the window's
+    busy time less the other two."""
+    spans = prof["spans"]
+    for name in STEP_SPANS:
+        if spans[name]["count"] != steps:
+            raise AssertionError(f"{name}: {spans[name]['count']} spans in "
+                                 f"{steps} profiled steps")
+    for name in (STEP_SPANS[0], STEP_SPANS[2]):
+        if torch.cuda.is_available() and spans[name]["device_count"] != steps:
+            raise AssertionError(f"{name}: {spans[name]['device_count']} "
+                                 f"extents on the device in {steps} steps")
+    fwd, bwd, adamw = (spans[n] for n in STEP_SPANS)
+    return dict(
+        forward_host_ms=fwd["host_ms"] / steps,
+        backward_host_ms=bwd["host_ms"] / steps,
+        adamw_host_ms=adamw["host_ms"] / steps,
+        forward_device_ms=fwd["device_ms"] / steps,
+        backward_device_ms=(prof["device_busy_ms"] - fwd["device_ms"]
+                            - adamw["device_ms"]) / steps,
+        adamw_device_ms=adamw["device_ms"] / steps)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: one training step on the card against one on the CPU
+# ---------------------------------------------------------------------------
+
+def check_train_step_against_cpu(rng: np.random.Generator) -> dict:
+    """The flagship step at full width, B=8, dropout 0, the same weights and
+    masks: the card in bf16 with the kernels, the CPU in fp32 with the plain
+    versions. Losses within 2e-2 relative; every trainable gradient with
+    cosine >= 0.99 to the CPU's."""
+    from mae_clip_torch.models import CLIPModel
+    from mae_clip_torch.ops.masking import MaskingResult, random_masking
+    from mae_clip_torch.train import (TrainState, make_optimizer,
+                                      make_train_step)
+
+    b = 8
+    card = build_train_model(b, "bfloat16", "cuda", seed=1, dropout=0.0)
+    cpu = CLIPModel(card.cfg.replace(compute_dtype="float32"),
+                    card.text_config, card.vit_config, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    vcfg = card.image_encoder.config
+    masking = random_masking(b, vcfg.num_patches, card.cfg.mae.mask_ratio,
+                             torch.Generator().manual_seed(3))
+    batch = {"image": torch.from_numpy(rng.integers(
+                 0, 256, (b, vcfg.num_patches, vcfg.patch_size ** 2 * 3),
+                 np.uint8)),
+             "text_features": torch.from_numpy(rng.normal(
+                 size=(b, card.text_config.dim)).astype(np.float32)),
+             "valid": torch.ones(b, dtype=torch.bool)}
+    metrics, grads = [], []
+    for model in (card, cpu):
+        opt = make_optimizer(model.cfg, model)
+        step = make_train_step(model, opt, model.cfg)
+        m = step(TrainState.create(model, opt), batch, masking=MaskingResult(
+            *(x.to(model.device) for x in masking)))
+        metrics.append({k: float(v) for k, v in m.items()})
+        grads.append({n: p.grad.float().cpu()
+                      for n, p in model.named_parameters() if p.requires_grad})
+    log(f"  metrics card bf16 {metrics[0]} vs CPU fp32 {metrics[1]}")
+    for k, want in metrics[1].items():
+        if abs(metrics[0][k] - want) > 2e-2 * abs(want):
+            raise AssertionError(f"{k}: card {metrics[0][k]} vs CPU {want}")
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        g.flatten(), grads[1][n].flatten(), dim=0))
+        for n, g in grads[0].items()}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+    log(f"  gradient cosine card vs CPU over {len(cos)} tensors: lowest "
+        f"{[(n, round(c, 5)) for n, c in worst]}")
+    if worst[0][1] < 0.99:
+        raise AssertionError(f"gradient cosine {worst[0]} < 0.99")
+    return dict(metrics=metrics, min_grad_cosine=worst[0][1])
+
+
+# ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+
+KERNELS = {  # name: (TPU kernel it replaces, source)
+    "qkv_packed_attention": ("mae_clip_tpu/ops/attention.py:303",
+                             "mae_clip_torch/csrc/attention_fwd.cu"),
+    "flash_attention": ("mae_clip_tpu/ops/attention.py:76",
+                        "mae_clip_torch/csrc/attention_fwd.cu"),
+    "qkv_packed_attention_bwd": ("mae_clip_tpu/ops/attention.py:324",
+                                 "mae_clip_torch/csrc/attention_bwd.cu"),
+    "flash_attention_bwd": ("mae_clip_tpu/ops/attention.py:172",
+                            "mae_clip_torch/csrc/attention_bwd.cu"),
 }
+
+
+def _counters():
+    from mae_clip_torch.ops import attention as A
+
+    return {"qkv_packed_attention": (A.qkv_packed_attention, "launches"),
+            "flash_attention": (A.flash_attention, "launches"),
+            "qkv_packed_attention_bwd": (A.qkv_packed_attention,
+                                         "bwd_launches"),
+            "flash_attention_bwd": (A.flash_attention, "bwd_launches")}
+
+
+def _reset_counts() -> dict:
+    counters = _counters()
+    for fn, field in counters.values():
+        setattr(fn, field, 0)
+    return counters
+
+
+def _read_counts(counters: dict) -> dict:
+    return {name: getattr(fn, field) for name, (fn, field) in counters.items()}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from mae_clip_torch.ops import attention as A
-
+    t_start = time.perf_counter()
     log(f"card: {card_line()}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     log("phase 1: build")
     build_kernels()
-    log("phase 2: kernels vs plain versions")
+    log("phase 2: kernels vs plain versions (forward, then backward)")
     errs = check_kernels()
+    check_backward_kernels(errs)
 
     log("phase 3: flagship serving path (ViT-S/16 + DistilBERT, bf16)")
     rng = np.random.default_rng(0)
     model = build_flagship("cuda", "bfloat16")
-    A.qkv_packed_attention.launches = 0
-    A.flash_attention.launches = 0
+    counts = _reset_counts()
     e2e = serve_flagship(model, rng)
-    launches = {name: getattr(A, name).launches for name in KERNELS}
-    log(f"  kernel launches on the serving path: {launches}")
-    for name, n in launches.items():
-        if n == 0:
+    served = _read_counts(counts)
+    log(f"  kernel launches on the serving path: {served}")
+    for name in ("qkv_packed_attention", "flash_attention"):
+        if served[name] == 0:
             raise AssertionError(f"{name} never launched on the serving path")
 
     log("phase 4: card vs CPU embeddings")
     check_against_cpu(model, rng)
+    del model
 
-    log("phase 5: kernel times")
-    times = time_kernels()
-    log(f"end to end: {json.dumps(e2e)}")
+    log("phase 6: flagship training step (B=256, bf16, cached text)")
+    launches, train = train_flagship(rng)
+    log("phase 7: card vs CPU training step (B=8, full width)")
+    train["against_cpu"] = check_train_step_against_cpu(rng)
 
-    kernels = [dict(name=name, route="cuda",
-                    source="mae_clip_torch/csrc/attention_fwd.cu",
+    log("phase 5: kernel times (serving shapes, then training shapes)")
+    time_serving_kernels()
+    times = time_training_kernels()
+    log(f"end to end: serving {json.dumps(e2e)}")
+    log(f"end to end: training {json.dumps(train)}")
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
+
+    kernels = [dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches[name],
                     max_abs_err=errs[name], ms=times[name]["ms"],
                     plain_ms=times[name]["plain_ms"],
                     bound_ms=times[name]["bound_ms"],
                     bound_by=times[name]["bound_by"],
                     library_ms=times[name]["library_ms"])
-               for name, replaces in KERNELS.items()]
+               for name, (replaces, source) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -58,28 +58,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 256;
-constexpr int kMaxHeadDim = 128;
 constexpr int kColsPerThread = kMaxHeadDim / 16;
-constexpr float kMaskValue = -0.7f * FLT_MAX;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// Element strides of one operand: batch, head, row (the last dim is 1).
-struct Strides {
-  long long b, h, r;
-};
 
 template <typename T>
 struct Params {
@@ -219,48 +205,6 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params<T> p) {
       const int col = tx + 16 * c;
       if (col < p.Dh) store(&ob[row * p.so.r + col], acc[i][c] / l);
     }
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two values as one bf16x2 register; the first takes the low half, which
-// mma.sync reads as the lower row/column index.
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-constexpr int kMmaThreads = 128;
-
-// Rows row0 .. row0+63 of a (rows, D) operand into a padded shared tile,
-// 16 bytes per load; rows past n are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int n, long long stride) {
-  constexpr int kChunks = D / 8, kLd = D + 8;
-  for (int i = threadIdx.x; i < kBlockK * kChunks; i += kMmaThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8, row = row0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row < n) v = *reinterpret_cast<const uint4*>(src + row * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * kLd + c) = v;
   }
 }
 

@@ -1,18 +1,25 @@
-"""Dual-tower CLIP model, inference part (``mae_clip_tpu/models/clip.py``).
+"""Dual-tower CLIP model (``mae_clip_tpu/models/clip.py``).
 
 Image tower -> ProjectionHead(384/768 -> projection_dim), DistilBERT CLS ->
 ProjectionHead(768 -> projection_dim). With MAE enabled the image tower is a
-``MAEViT`` and ``encode_image`` runs its full-sequence pass. The SigLIP
+``MAEViT``: ``forward`` runs its masked pass (and, with
+``clip_from_masked=False``, a separate full pass for the contrastive
+features), ``encode_image`` its full pass. ``forward`` returns the
+embeddings and the losses (soft-target InfoNCE, norm-pix MAE). The SigLIP
 (``logit_scale`` + ``logit_bias``) and learnable-temperature
-(``logit_scale``) parameters are created as in the JAX package, for
-zero-shot scoring. The ResNet50 tower and the losses are not ported yet.
+(``logit_scale``) parameters are created as in the JAX package; their losses
+and the ResNet50 tower are not ported yet.
+
+A frozen tower (``trainable`` / ``text_trainable`` False) has
+``requires_grad`` off, and with ``frozen_text_eval_mode`` the text tower
+stays in eval mode (no dropout) when the model trains.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -25,6 +32,8 @@ from mae_clip_torch.models.mae import MAEDecoderConfig, MAEViT
 from mae_clip_torch.models.projection import ProjectionHead
 from mae_clip_torch.models.vit import (ViTConfig, ViTEncoder,
                                        _resolved_vit_config)
+from mae_clip_torch.ops import losses as losses_lib
+from mae_clip_torch.ops.masking import MaskingResult
 
 
 def mae_vit_for(cfg: Config, vit_config: Optional[ViTConfig] = None
@@ -43,7 +52,9 @@ def mae_vit_for(cfg: Config, vit_config: Optional[ViTConfig] = None
 
 
 class CLIPModel(nn.Module):
-    """Embedding entry points of the CLIP model (eval mode)."""
+    """The CLIP model: ``forward`` (embeddings + losses) and the embedding
+    entry points. Built in eval mode; ``forward(train=True)`` switches it to
+    train mode."""
 
     def __init__(self, cfg: Config,
                  text_config: DistilBertConfig = DistilBertConfig(),
@@ -81,8 +92,21 @@ class CLIPModel(nn.Module):
         elif cfg.learnable_temperature:
             self.logit_scale = nn.Parameter(
                 torch.tensor(math.log(1.0 / cfg.temperature)))
+        if not cfg.trainable:
+            self.image_encoder.requires_grad_(False)
+        if not cfg.text_trainable:
+            self.text_encoder.requires_grad_(False)
         self.to(device)
         self.eval()
+
+    def train(self, mode: bool = True) -> "CLIPModel":
+        """As ``nn.Module.train``, but a frozen text tower with
+        ``frozen_text_eval_mode`` stays in eval mode (LiT-style)."""
+        super().train(mode)
+        if mode and not self.cfg.text_trainable and \
+                self.cfg.frozen_text_eval_mode:
+            self.text_encoder.eval()
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -130,3 +154,55 @@ class CLIPModel(nn.Module):
 
     def project_text(self, feats: torch.Tensor) -> torch.Tensor:
         return self.text_projection(feats)
+
+    def forward(self, batch: Dict[str, torch.Tensor], train: bool = False,
+                masking: Optional[MaskingResult] = None,
+                generator: Optional[torch.Generator] = None,
+                compute_contrastive: bool = True) -> Dict[str, torch.Tensor]:
+        """Embeddings and losses for ``batch``: ``image`` (normalised NHWC or
+        patches), and ``text_features`` (B, 768) from the frozen-tower cache
+        or ``input_ids`` / ``attention_mask``; optional ``valid`` (B,) bool.
+
+        ``train`` sets the mode (dropout on or off) as the JAX package's flag
+        does. ``masking`` gives the MAE mask indices, else they are drawn
+        from ``generator``. With ``compute_contrastive=False`` the caller
+        computes the contrastive loss (the train step does) and only
+        ``mae_loss`` is returned with the embeddings."""
+        cfg = self.cfg
+        if train != self.training:
+            self.train(train)
+        valid = batch.get("valid")
+        mae_out = None
+        if cfg.mae.enabled:
+            mae_out = self.image_encoder(batch["image"], generator=generator,
+                                         masking=masking)
+            image_features = (mae_out.pooled if cfg.mae.clip_from_masked else
+                              self.image_encoder.encode_full(batch["image"]))
+        else:
+            image_features = self.image_encoder(batch["image"])
+
+        if "text_features" in batch:
+            text_features = batch["text_features"]
+        elif cfg.text_trainable:
+            text_features = self.text_encoder(batch["input_ids"],
+                                              batch["attention_mask"])
+        else:
+            with torch.no_grad():
+                text_features = self.text_encoder(batch["input_ids"],
+                                                  batch["attention_mask"])
+        out = {"image_embeddings": self.image_projection(image_features),
+               "text_embeddings": self.text_projection(text_features)}
+        if compute_contrastive:
+            out["clip_loss"] = out["loss"] = losses_lib.contrastive_loss_fn(
+                cfg)(out["image_embeddings"], out["text_embeddings"], valid)
+        if mae_out is not None:
+            mae_mask = mae_out.mask
+            if valid is not None:
+                mae_mask = mae_mask * valid.float()[:, None]
+            out["mae_loss"] = losses_lib.mae_reconstruction_loss(
+                mae_out.pred_patches, mae_out.target_patches, mae_mask,
+                norm_pix=cfg.mae.norm_pix_loss)
+            if compute_contrastive:
+                out["loss"] = out["clip_loss"] + cfg.mae.loss_weight * \
+                    out["mae_loss"]
+        return out

@@ -1,25 +1,36 @@
 """Masked autoencoder over the ViT image tower (``mae_clip_tpu/models/mae.py``).
 
-``MAEViT`` holds the encoder (shared with CLIP) and the decoder parameters,
-so a flagship parameter tree converts whole. Only the inference entry point
-is ported so far: ``encode_full`` (every patch, no decoder), the image tower
-of retrieval and zero-shot. The masked training pass and the decoder raise
-``NotImplementedError`` until the training path is ported.
+``MAEViT`` holds the encoder (shared with CLIP) and the decoder, so a
+flagship parameter tree converts whole. Two entry points over the same
+parameters:
+
+* ``forward(images, generator, masking)``: the masked training pass. The
+  visible 25 % of the patches are gathered, embedded and encoded (CLS + K
+  tokens); the CrossMAE decoder (``decoder_style='cross'``) then decodes the
+  masked positions only, each mask-token query cross-attending the encoded
+  visible tokens. The pooled CLS feeds the contrastive loss (FLIP recipe).
+* ``encode_full(images)``: every patch, no decoder; the image tower of
+  retrieval and zero-shot.
+
+The MAE-paper decoder (``decoder_style='full'``: self-attention over all
+positions after scattering mask tokens) is built but its forward raises; it
+comes with the MAE-pretraining slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from mae_clip_torch.models.layers import Dense, LayerNorm
 from mae_clip_torch.models.vit import (Mlp, PatchEmbed, ViTBlock, ViTConfig,
-                                       sincos_pos_embed_2d)
-
-_TRAINING_PATH = ("the MAE masked pass and decoder are not ported yet; they "
-                  "come with the training path")
+                                       patchify, sincos_pos_embed_2d)
+from mae_clip_torch.ops.attention import multi_head_attention
+from mae_clip_torch.ops.masking import (MaskingResult, gather_patches,
+                                        random_masking)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +42,13 @@ class MAEDecoderConfig:
     gelu: str = "tanh"
 
 
+class MAEOutput(NamedTuple):
+    pooled: torch.Tensor          # (B, dim) CLS feature of the visible pass
+    pred_patches: torch.Tensor    # (B, N - K, P*P*C) for the cross decoder
+    target_patches: torch.Tensor  # the same rows of the input patches
+    mask: torch.Tensor            # (B, N - K) ones: every row is masked
+
+
 class CrossAttention(nn.Module):
     def __init__(self, dim: int, dtype: torch.dtype):
         super().__init__()
@@ -40,23 +58,41 @@ class CrossAttention(nn.Module):
 
 
 class CrossAttnBlock(nn.Module):
-    """CrossMAE decoder block (parameters only; its forward is not ported)."""
+    """Pre-LN block whose attention is cross-attention: queries are the
+    masked-position decoder tokens, keys/values the encoded visible tokens
+    (CrossMAE, arXiv:2401.14391)."""
 
     def __init__(self, config: ViTConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        c = config
+        c = self.config = config
         self.norm1 = LayerNorm(c.dim, 1e-6, dtype)
         self.norm_kv = LayerNorm(c.dim, 1e-6, dtype)
         self.attn = CrossAttention(c.dim, dtype)
         self.norm2 = LayerNorm(c.dim, 1e-6, dtype)
         self.mlp = Mlp(c.dim, int(c.dim * c.mlp_ratio), c.gelu, dtype)
+        self.mlp_drop = nn.Dropout(c.dropout)
 
-    def forward(self, q_tokens, kv_tokens):
-        raise NotImplementedError(_TRAINING_PATH)
+    def forward(self, q_tokens: torch.Tensor,
+                kv_tokens: torch.Tensor) -> torch.Tensor:
+        c = self.config
+        b, sq, _ = q_tokens.shape
+        sk = kv_tokens.shape[1]
+        dh = c.dim // c.n_heads
+        q = self.attn.q(self.norm1(q_tokens))
+        kv = self.attn.kv(self.norm_kv(kv_tokens)).view(b, sk, 2, c.n_heads,
+                                                         dh)
+        # Head splits as strided views of the linear outputs: no copies.
+        ctx = multi_head_attention(
+            q.view(b, sq, c.n_heads, dh).transpose(1, 2),
+            kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2),
+            sm_scale=1.0 / dh ** 0.5)
+        x = q_tokens + self.attn.proj(ctx.transpose(1, 2).reshape(b, sq,
+                                                                  c.dim))
+        return x + self.mlp_drop(self.mlp(self.norm2(x)))
 
 
 class MAEViT(nn.Module):
-    """ViT encoder (shared with CLIP) + MAE decoder parameters."""
+    """ViT encoder (shared with CLIP) + MAE decoder."""
 
     def __init__(self, config: ViTConfig,
                  decoder: MAEDecoderConfig = MAEDecoderConfig(),
@@ -88,17 +124,55 @@ class MAEViT(nn.Module):
             block(dec_cfg, dtype) for _ in range(d.depth))
         self.decoder_norm = LayerNorm(d.dim, 1e-6, dtype)
         self.decoder_pred = Dense(d.dim, c.patch_size ** 2 * channels, dtype)
+        self.register_buffer("dec_pe", torch.from_numpy(
+            sincos_pos_embed_2d(d.dim, c.grid_size, cls_token=True))[None],
+            persistent=False)
+
+    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+        """CLS (+ its position) prepended to embedded tokens, the blocks,
+        the final norm."""
+        cls = (self.cls_token + self.enc_pe[:, :1]).expand(x.shape[0], -1, -1)
+        x = torch.cat([cls.to(x.dtype), x], dim=1)
+        for block in self.blocks:
+            x = block(x)
+        return self.norm(x)
 
     def encode_full(self, images: torch.Tensor) -> torch.Tensor:
         """Full-sequence inference pass: the pooled CLS over ALL patches."""
         x = self.patch_embed(images)
-        pe = self.enc_pe
-        x = x + pe[:, 1:].to(x.dtype)
-        cls = (self.cls_token + pe[:, :1]).expand(x.shape[0], -1, -1)
-        x = torch.cat([cls.to(x.dtype), x], dim=1)
-        for block in self.blocks:
-            x = block(x)
-        return self.norm(x)[:, 0]
+        return self._encode(x + self.enc_pe[:, 1:].to(x.dtype))[:, 0]
 
-    def forward(self, images, masking=None):
-        raise NotImplementedError(_TRAINING_PATH)
+    def forward(self, images: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                masking: Optional[MaskingResult] = None) -> MAEOutput:
+        """The masked pass. ``masking`` gives the mask indices (the tests
+        feed the JAX package's); without it they are drawn from
+        ``generator``."""
+        if self.decoder_style != "cross":
+            raise NotImplementedError(
+                "the 'full' MAE decoder's forward comes with the "
+                "MAE-pretraining slice; use decoder_style='cross'")
+        c, d = self.config, self.decoder
+        target = images if images.dim() == 3 else patchify(images,
+                                                           c.patch_size)
+        b = target.shape[0]
+        if masking is None:
+            masking = random_masking(b, c.num_patches, self.mask_ratio,
+                                     generator, target.device)
+        x = self.patch_embed(target, ids=masking.ids_keep)
+        x = x + self.enc_pe[0, 1:][masking.ids_keep].to(x.dtype)
+        encoded = self._encode(x)
+
+        # CrossMAE decoder: mask-token queries at the masked positions only,
+        # keys/values the decoder-embedded visible tokens (+ CLS).
+        y = self.decoder_embed(encoded)
+        pe = self.dec_pe
+        kv = y + torch.cat([pe[:, :1].expand(b, -1, -1),
+                            pe[0, 1:][masking.ids_keep]], dim=1).to(y.dtype)
+        q = (self.mask_token + pe[0, 1:][masking.ids_masked]).to(y.dtype)
+        for block in self.decoder_blocks:
+            q = block(q, kv)
+        pred = self.decoder_pred(self.decoder_norm(q))
+        ones = torch.ones(masking.ids_masked.shape, device=target.device)
+        return MAEOutput(encoded[:, 0], pred,
+                         gather_patches(target, masking.ids_masked), ones)

@@ -23,6 +23,7 @@ from torch import nn
 from mae_clip_torch.config import Config
 from mae_clip_torch.models.layers import Dense, LayerNorm, gelu
 from mae_clip_torch.ops.attention import fused_qkv_attention
+from mae_clip_torch.ops.masking import gather_patches
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +99,11 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
 
 
 class PatchEmbed(nn.Module):
-    """Patchify + linear projection (== a stride-P conv), as one matmul."""
+    """Patchify + linear projection (== a stride-P conv), as one matmul.
+
+    With ``ids`` (B, K) only those patch rows are embedded: the rows are
+    gathered, then projected (the MAE visible set; ``vit.py``'s XLA path).
+    """
 
     def __init__(self, config: ViTConfig, channels: int = 3,
                  dtype: torch.dtype = torch.float32):
@@ -107,9 +112,12 @@ class PatchEmbed(nn.Module):
         p = config.patch_size
         self.proj = Dense(p * p * channels, config.dim, dtype)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         patches = (images if images.dim() == 3
                    else patchify(images, self.config.patch_size))
+        if ids is not None:
+            patches = gather_patches(patches, ids)
         return self.proj(patches)
 
 

@@ -3,8 +3,9 @@
 Each source under ``mae_clip_torch/csrc/`` is compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``build/kernels/`` at the repository root, keyed by a hash of the
-source and the flags, and loaded with ``ctypes``. Nothing is built when the
-package is imported, so the CPU tests never need ``nvcc``.
+source, of every ``csrc/`` header it includes, and of the flags, and loaded
+with ``ctypes``. Nothing is built when the package is imported, so the CPU
+tests never need ``nvcc``.
 
 ``nvcc`` is taken from ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``) or
 the ``PATH``. The ``-Xptxas -v`` report (registers, shared memory, spills
@@ -17,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,7 +28,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("attention_fwd.cu",)
+SOURCES = ("attention_fwd.cu", "attention_bwd.cu")
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,9 +44,24 @@ def _nvcc() -> str:
     return found
 
 
+def _inputs(source: str) -> list:
+    """``source`` and the ``csrc/`` headers it includes, transitively."""
+    seen, todo = [], [source]
+    while todo:
+        name = todo.pop()
+        if name not in seen:
+            seen.append(name)
+            todo += [m.decode() for m in
+                     _LOCAL_INCLUDE.findall((CSRC / name).read_bytes())]
+    return seen
+
+
 def library_path(source: str) -> Path:
-    """Where ``source``'s library lives once built (hash of text + flags)."""
-    h = hashlib.sha256((CSRC / source).read_bytes())
+    """Where ``source``'s library lives once built (hash of the source, its
+    included headers and the flags)."""
+    h = hashlib.sha256()
+    for name in _inputs(source):
+        h.update(name.encode() + b"\0" + (CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
@@ -82,18 +100,38 @@ def ptxas_report(source: str) -> str:
     return library_path(source).with_suffix(".log").read_text()
 
 
+_VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+
+
 @functools.lru_cache(maxsize=None)
 def load_attention() -> ctypes.CDLL:
     """The attention forward library, with its C signatures declared."""
     lib = ctypes.CDLL(str(build("attention_fwd.cu")))
-    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    vp, i32, f32 = _VP, _I32, _F32
     lib.flash_attention_fwd.argtypes = [
-        vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
-        i32, i32, i32, i32, i32, f32, i32, vp]
+        vp, vp, vp, vp, vp, _STRIDES, i32, i32, i32, i32, i32, f32, i32, vp]
     lib.flash_attention_fwd.restype = i32
     lib.qkv_packed_attention_fwd.argtypes = [
         vp, vp, vp, i32, i32, i32, i32, f32, i32, vp]
     lib.qkv_packed_attention_fwd.restype = i32
     lib.attention_error_string.argtypes = [i32]
     lib.attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_attention_bwd() -> ctypes.CDLL:
+    """The attention backward library, with its C signatures declared."""
+    lib = ctypes.CDLL(str(build("attention_bwd.cu")))
+    vp, i32, f32 = _VP, _I32, _F32
+    lib.flash_attention_bwd.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp, vp, _STRIDES,
+        i32, i32, i32, i32, i32, f32, i32, vp]
+    lib.flash_attention_bwd.restype = i32
+    lib.qkv_packed_attention_bwd.argtypes = [
+        vp, vp, vp, vp, vp, i32, i32, i32, i32, f32, i32, vp]
+    lib.qkv_packed_attention_bwd.restype = i32
+    lib.attention_bwd_error_string.argtypes = [i32]
+    lib.attention_bwd_error_string.restype = ctypes.c_char_p
     return lib

@@ -7,19 +7,26 @@ key mask, or the packed ``(B, S, 3*H*Dh)`` output of a fused qkv matmul
 
 * ``attention_ref``: HF DistilBERT masking semantics (invalid-key scores
   replaced by ``finfo(float32).min``, softmax in fp32).
-* ``flash_attention_ref`` / ``qkv_packed_attention_ref``: the plain versions
-  of the two kernels, with the kernels' own semantics (masked keys at
-  ``-0.7 * f32max``, normaliser floored at ``1e-30``, fp32 softmax).
-* ``flash_attention`` / ``qkv_packed_attention``: the kernel wrappers. On a
-  CPU tensor they run their plain version; on a CUDA tensor they launch the
-  hand-written kernel of ``csrc/attention_fwd.cu`` or raise. Each keeps a
-  count of its kernel launches in ``<wrapper>.launches``.
+* ``flash_attention_ref`` / ``qkv_packed_attention_ref`` and
+  ``flash_attention_bwd_ref`` / ``qkv_packed_attention_bwd_ref``: the plain
+  versions of the four kernels, with the kernels' own semantics (masked keys
+  at ``-0.7 * f32max``, normaliser floored at ``1e-30``, fp32 softmax; the
+  backward recomputes P, rounds P and dS to the input type before their
+  products and zeroes dS at masked keys).
+* ``flash_attention`` / ``qkv_packed_attention``: the kernel wrappers, one
+  ``torch.autograd.Function`` each, as the JAX package's ``custom_vjp``s: the
+  forward saves only its inputs and the mask, the backward recomputes. On a
+  CPU tensor both directions run their plain versions; on a CUDA tensor they
+  launch the hand-written kernels of ``csrc/attention_fwd.cu`` and
+  ``csrc/attention_bwd.cu`` or raise. Each wrapper counts its kernel
+  launches in ``<wrapper>.launches`` (forward) and ``<wrapper>.bwd_launches``.
 * ``fused_qkv_attention`` / ``multi_head_attention``: the dispatchers the
   models call. There is no ``impl`` switch: the device of the input decides.
 
-The kernels are forward only. Their backward kernels (the JAX package's
-``_qkv_bwd_kernel`` and ``_flash_bwd_kernel``) are not ported yet, so a
-backward pass through a kernel wrapper raises ``NotImplementedError``.
+A fully masked row gets uniform weights over its Sk keys and no gradient
+into q or k, as JAX's ``attention_xla`` gives. (The JAX package's Pallas
+forward pads Sk to a multiple of 128 and lets the padded keys into such a
+row's softmax; that fault is recorded in ROADMAP.md and not copied.)
 """
 
 from __future__ import annotations
@@ -93,6 +100,50 @@ def qkv_packed_attention_ref(qkv: torch.Tensor,
     return ctx.permute(0, 2, 1, 3).reshape(b, s, three_hd // 3)
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor,
+                            key_valid: Optional[torch.Tensor],
+                            sm_scale: Optional[float],
+                            d_out: torch.Tensor):
+    """Plain version of the flash backward kernel: (dq, dk, dv) for q
+    (B, H, Sq, Dh), k/v (B, H, Sk, Dh) and d_out (B, H, Sq, Dh). The math and
+    casts of the TPU kernel: P recomputed in fp32, ``pt = P`` and dO in v's
+    type for dV, ``dP`` fp32, ``delta = rowsum(P * dP)``, ``dS = P * (dP -
+    delta)`` in q's type (zero at masked keys), fp32 sums."""
+    scale = _scale(q.shape[-1], sm_scale)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    valid = None
+    if key_valid is not None:
+        valid = key_valid[:, None, None, :] > 0
+        s = torch.where(valid, s, torch.full_like(s, MASK_VALUE))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    do = d_out.to(v.dtype).float()
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), do)
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    if valid is not None:
+        ds = torch.where(valid, ds, torch.zeros_like(ds))
+    ds = ds.to(q.dtype).float()
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def qkv_packed_attention_bwd_ref(qkv: torch.Tensor,
+                                 key_valid: Optional[torch.Tensor],
+                                 n_heads: int, sm_scale: Optional[float],
+                                 d_out: torch.Tensor) -> torch.Tensor:
+    """Plain version of the packed backward kernel: d_qkv (B, S, 3*H*Dh) in
+    the packed column layout, for d_out (B, S, H*Dh)."""
+    b, s, three_hd = qkv.shape
+    d = three_hd // (3 * n_heads)
+    q, k, v = _unpack(qkv, n_heads)
+    do = d_out.reshape(b, s, n_heads, d).permute(0, 2, 1, 3)
+    grads = flash_attention_bwd_ref(q, k, v, key_valid, sm_scale, do)
+    return torch.stack(grads).permute(1, 3, 0, 2, 4).reshape(b, s, three_hd)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -124,10 +175,24 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _raise_on_error(lib, err: int, name: str) -> None:
+def _raise_on_error(err: int, error_string, name: str) -> None:
     if err != 0:
-        msg = lib.attention_error_string(err).decode()
+        msg = error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _count(wrapper, field: str) -> None:
+    with _COUNT_LOCK:
+        setattr(wrapper, field, getattr(wrapper, field) + 1)
+
+
+def _strides(*tensors: torch.Tensor):
+    vals = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def _launch_flash(q, k, v, mask, scale: float) -> torch.Tensor:
@@ -140,16 +205,37 @@ def _launch_flash(q, k, v, mask, scale: float) -> torch.Tensor:
     # callers' head merge back to (B, Sq, H*Dh) is then free.
     out = torch.empty((b, sq, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     err = lib.flash_attention_fwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out), strides,
-        b, h, sq, sk, d, scale, _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on_error(lib, err, "flash_attention")
-    with _COUNT_LOCK:
-        flash_attention.launches += 1
+        _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out),
+        _strides(q, k, v, out), b, h, sq, sk, d, scale,
+        _DTYPE_CODES[q.dtype], _stream(q))
+    _raise_on_error(err, lib.attention_error_string, "flash_attention")
+    _count(flash_attention, "launches")
     return out
+
+
+def _launch_flash_bwd(q, k, v, mask, scale: float, d_out):
+    from mae_clip_torch.ops._build import load_attention_bwd
+
+    lib = load_attention_bwd()
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if d_out.stride(-1) != 1:
+        d_out = d_out.contiguous()
+    # empty_like keeps a dense input's strides: the gradient of a head-split
+    # view lands in the layout of the tensor it was split from.
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    scratch = torch.empty(3 * b * h * sq, dtype=torch.float32,
+                          device=q.device)
+    err = lib.flash_attention_bwd(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(d_out), _ptr(dq),
+        _ptr(dk), _ptr(dv), _ptr(scratch),
+        _strides(q, k, v, d_out, dq, dk, dv), b, h, sq, sk, d, scale,
+        _DTYPE_CODES[q.dtype], _stream(q))
+    _raise_on_error(err, lib.attention_bwd_error_string,
+                    "flash_attention backward")
+    _count(flash_attention, "bwd_launches")
+    return dq, dk, dv
 
 
 def _launch_packed(qkv, mask, n_heads: int, scale: float) -> torch.Tensor:
@@ -161,44 +247,86 @@ def _launch_packed(qkv, mask, n_heads: int, scale: float) -> torch.Tensor:
     out = torch.empty((b, s, n_heads * d), dtype=qkv.dtype, device=qkv.device)
     err = lib.qkv_packed_attention_fwd(
         _ptr(qkv), _ptr(mask), _ptr(out), b, s, n_heads, d, scale,
-        _DTYPE_CODES[qkv.dtype],
-        torch.cuda.current_stream(qkv.device).cuda_stream)
-    _raise_on_error(lib, err, "qkv_packed_attention")
-    with _COUNT_LOCK:
-        qkv_packed_attention.launches += 1
+        _DTYPE_CODES[qkv.dtype], _stream(qkv))
+    _raise_on_error(err, lib.attention_error_string, "qkv_packed_attention")
+    _count(qkv_packed_attention, "launches")
     return out
 
 
-class _FlashFwd(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, mask, scale):
-        return _launch_flash(q, k, v, mask, scale)
+def _launch_packed_bwd(qkv, mask, n_heads: int, scale: float,
+                       d_out) -> torch.Tensor:
+    from mae_clip_torch.ops._build import load_attention_bwd
+
+    lib = load_attention_bwd()
+    b, s, three_hd = qkv.shape
+    d = three_hd // (3 * n_heads)
+    d_out = d_out.contiguous()
+    d_qkv = torch.empty_like(qkv)
+    scratch = torch.empty(3 * b * n_heads * s, dtype=torch.float32,
+                          device=qkv.device)
+    err = lib.qkv_packed_attention_bwd(
+        _ptr(qkv), _ptr(mask), _ptr(d_out), _ptr(d_qkv), _ptr(scratch),
+        b, s, n_heads, d, scale, _DTYPE_CODES[qkv.dtype], _stream(qkv))
+    _raise_on_error(err, lib.attention_bwd_error_string,
+                    "qkv_packed_attention backward")
+    _count(qkv_packed_attention, "bwd_launches")
+    return d_qkv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernels #2 (forward) and #4 (backward); plain versions on the CPU."""
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(
-            "flash_attention backward kernel is not ported yet")
-
-
-class _PackedFwd(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, qkv, mask, n_heads, scale):
-        return _launch_packed(qkv, mask, n_heads, scale)
+    def forward(ctx, q, k, v, key_valid, scale):
+        ctx.save_for_backward(q, k, v, key_valid)
+        ctx.scale = scale
+        if q.device.type == "cpu":
+            return flash_attention_ref(q, k, v, key_valid, scale)
+        return _launch_flash(q, k, v, key_valid, scale)
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(
-            "qkv_packed_attention backward kernel is not ported yet")
+    def backward(ctx, d_out):
+        q, k, v, key_valid = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = flash_attention_bwd_ref(q, k, v, key_valid, ctx.scale,
+                                            d_out)
+        else:
+            grads = _launch_flash_bwd(q, k, v, key_valid, ctx.scale, d_out)
+        return (*grads, None, None)
+
+
+class _PackedAttention(torch.autograd.Function):
+    """Kernels #1 (forward) and #3 (backward); plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, qkv, key_valid, n_heads, scale):
+        ctx.save_for_backward(qkv, key_valid)
+        ctx.n_heads, ctx.scale = n_heads, scale
+        if qkv.device.type == "cpu":
+            return qkv_packed_attention_ref(qkv, key_valid, n_heads, scale)
+        return _launch_packed(qkv, key_valid, n_heads, scale)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        qkv, key_valid = ctx.saved_tensors
+        if qkv.device.type == "cpu":
+            d_qkv = qkv_packed_attention_bwd_ref(qkv, key_valid, ctx.n_heads,
+                                                 ctx.scale, d_out)
+        else:
+            d_qkv = _launch_packed_bwd(qkv, key_valid, ctx.n_heads,
+                                       ctx.scale, d_out)
+        return d_qkv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_valid: Optional[torch.Tensor] = None,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Flash attention forward. q (B, H, Sq, Dh), k/v (B, H, Sk, Dh),
-    key_valid (B, Sk) or None. CUDA inputs may be any strided views whose
-    last dim is contiguous (the head split of a linear output needs no copy)."""
+    """Flash attention. q (B, H, Sq, Dh), k/v (B, H, Sk, Dh), key_valid
+    (B, Sk) or None. CUDA inputs may be any strided views whose last dim is
+    contiguous (the head split of a linear output needs no copy)."""
+    scale = _scale(q.shape[-1], sm_scale)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, key_valid, sm_scale)
+        return _FlashAttention.apply(q, k, v, key_valid, scale)
     _check_cuda("flash_attention", q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -210,10 +338,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the last dim must be contiguous")
     mask = _mask_arg(key_valid, b, sk, q.device)
-    return _FlashFwd.apply(q, k, v, mask, _scale(d, sm_scale))
+    return _FlashAttention.apply(q, k, v, mask, scale)
 
 
 flash_attention.launches = 0
+flash_attention.bwd_launches = 0
 
 
 def qkv_packed_attention(qkv: torch.Tensor,
@@ -222,21 +351,23 @@ def qkv_packed_attention(qkv: torch.Tensor,
                          sm_scale: Optional[float] = None) -> torch.Tensor:
     """Attention straight from the packed (B, S, 3*H*Dh) qkv tensor; returns
     the head-concatenated (B, S, H*Dh) context."""
-    if qkv.device.type == "cpu":
-        return qkv_packed_attention_ref(qkv, key_valid, n_heads, sm_scale)
-    _check_cuda("qkv_packed_attention", qkv)
     b, s, three_hd = qkv.shape
     d = three_hd // (3 * n_heads)
+    scale = _scale(d, sm_scale)
+    if qkv.device.type == "cpu":
+        return _PackedAttention.apply(qkv, key_valid, n_heads, scale)
+    _check_cuda("qkv_packed_attention", qkv)
     if three_hd != 3 * n_heads * d or d > MAX_HEAD_DIM or s == 0:
         raise ValueError(f"qkv_packed_attention: bad shape {tuple(qkv.shape)} "
                          f"for {n_heads} heads (Dh <= {MAX_HEAD_DIM})")
     if not qkv.is_contiguous():
         raise ValueError("qkv_packed_attention: qkv must be contiguous")
     mask = _mask_arg(key_valid, b, s, qkv.device)
-    return _PackedFwd.apply(qkv, mask, n_heads, _scale(d, sm_scale))
+    return _PackedAttention.apply(qkv, mask, n_heads, scale)
 
 
 qkv_packed_attention.launches = 0
+qkv_packed_attention.bwd_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,150 @@
+"""The train and eval steps (``mae_clip_tpu/train/loop.py``, single step).
+
+``make_train_step(model, optimizer, cfg)`` returns ``step(state, batch,
+masking=None) -> metrics``: uint8 images are normalised in the step, the
+model runs in train mode (the MAE masks drawn from ``state.generator``
+unless ``masking`` is given), the loss is the soft-target InfoNCE plus
+``cfg.mae.loss_weight`` times the MAE loss, then one backward pass and one
+AdamW update. The metrics are 0-d tensors on the model's device; nothing in
+the step waits for the card. The forward and the backward run under the
+profiler spans ``train_step.forward`` and ``train_step.backward``; the
+update under the optimizer's own (``Optimizer.step#AdamW.step``).
+
+The contrastive loss is the local one, as the JAX step computes it without a
+mesh. Not ported, and raising: gradient accumulation (GradCache), SigLIP,
+the hard-label and learnable-temperature losses, the global and chunked
+forms, in-step augmentation of uint8 sources at another geometry, EMA. The
+Trainer, checkpoints and the MAE-pretrain step are later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from mae_clip_torch.config import Config
+from mae_clip_torch.data.images import normalize_uint8
+from mae_clip_torch.data.tokenizer import pad_token_batch
+from mae_clip_torch.ops import losses as losses_lib
+from mae_clip_torch.ops.masking import MaskingResult
+from mae_clip_torch.train.state import TrainState
+
+Metrics = Dict[str, torch.Tensor]
+
+
+def _as_tensors(batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def _prep_images(images: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """uint8 NHWC at the model's size or uint8 patches: ImageNet
+    normalisation in the step (4x less host->device traffic than fp32).
+    Anything that is not uint8 passes through."""
+    if images.dtype != torch.uint8:
+        return images
+    if images.dim() == 4 and images.shape[1] != cfg.size:
+        raise NotImplementedError(
+            "uint8 images at another geometry than cfg.size need the in-step "
+            "RandomResizedCrop (ops/augment.py), which is not ported")
+    return normalize_uint8(images)
+
+
+def _forward(model, batch: Dict[str, torch.Tensor], train: bool,
+             generator: Optional[torch.Generator], cfg: Config,
+             masking: Optional[MaskingResult] = None) -> Metrics:
+    batch = dict(batch, image=_prep_images(batch["image"], cfg))
+    return model(batch, train=train, masking=masking, generator=generator,
+                 compute_contrastive=False)
+
+
+def _clip_loss_fn(cfg: Config) -> Callable:
+    """The local contrastive loss: ``fn(img, txt, valid)``."""
+    if cfg.loss_chunk_size > 0:
+        raise NotImplementedError("the chunked global contrastive loss is "
+                                  "not ported")
+    return losses_lib.contrastive_loss_fn(cfg)
+
+
+def _metrics(cfg: Config, out: Metrics, clip_loss: torch.Tensor) -> Metrics:
+    metrics = {"clip_loss": clip_loss, "loss": clip_loss}
+    if "mae_loss" in out:
+        metrics["mae_loss"] = out["mae_loss"]
+        metrics["loss"] = clip_loss + cfg.mae.loss_weight * out["mae_loss"]
+    return metrics
+
+
+def make_train_step(model, optimizer: torch.optim.Optimizer, cfg: Config,
+                    accum_steps: int = 1):
+    """``step(state, batch, masking=None) -> metrics``; updates the model in
+    place and adds one to ``state.step``."""
+    if accum_steps != 1:
+        raise NotImplementedError("accum_steps > 1 (GradCache accumulation) "
+                                  "is not ported")
+    clip_loss_fn = _clip_loss_fn(cfg)
+
+    def step(state: TrainState, batch,
+             masking: Optional[MaskingResult] = None) -> Metrics:
+        if state.model is not model or state.optimizer is not optimizer:
+            raise ValueError("the state holds another model or optimizer")
+        with record_function("train_step.forward"):
+            batch = _as_tensors(batch, model.device)
+            out = _forward(model, batch, True, state.generator, cfg, masking)
+            metrics = _metrics(cfg, out, clip_loss_fn(
+                out["image_embeddings"], out["text_embeddings"],
+                batch.get("valid")))
+        with record_function("train_step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            metrics["loss"].backward()
+        optimizer.step()
+        state.step += 1
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_eval_step(model, cfg: Config):
+    """``step(state, batch, masking=None) -> metrics``: eval mode (no
+    dropout), no gradients, the same masking convention as training."""
+    clip_loss_fn = _clip_loss_fn(cfg)
+
+    @torch.no_grad()
+    def step(state: TrainState, batch,
+             masking: Optional[MaskingResult] = None) -> Metrics:
+        batch = _as_tensors(batch, model.device)
+        out = _forward(model, batch, False, state.generator, cfg, masking)
+        return _metrics(cfg, out, clip_loss_fn(
+            out["image_embeddings"], out["text_embeddings"],
+            batch.get("valid")))
+
+    return step
+
+
+def precompute_text_features(model, dataset,
+                             batch_size: int = 512) -> np.ndarray:
+    """One pass of the frozen text tower over a caption set, the LiT-style
+    cache the flagship step reads as ``text_features``. ``dataset`` needs
+    ``input_ids`` and ``attention_mask`` arrays (N, S). Returns (N, 768)
+    float32 CLS features, before projection."""
+    cfg = model.cfg
+    if cfg.text_trainable or not cfg.frozen_text_eval_mode:
+        raise ValueError(
+            "text-feature caching requires a frozen text tower in eval "
+            "mode (text_trainable=False, frozen_text_eval_mode=True); "
+            "otherwise the tower output is not constant across steps")
+    ids_all = np.asarray(dataset.input_ids)
+    mask_all = np.asarray(dataset.attention_mask)
+    out = []
+    for start in range(0, len(ids_all), batch_size):
+        count = min(batch_size, len(ids_all) - start)
+        ids, mask = pad_token_batch(ids_all[start:start + batch_size],
+                                    mask_all[start:start + batch_size],
+                                    batch_size)
+        with torch.no_grad():
+            feats = model.encode_text(
+                torch.as_tensor(ids, dtype=torch.long, device=model.device),
+                torch.as_tensor(mask, device=model.device))
+        out.append(feats.float().cpu().numpy()[:count])
+    return np.concatenate(out) if out else np.zeros((0, 0), np.float32)

@@ -1,10 +1,12 @@
 """The port's attention (mae_clip_torch.ops.attention) against the JAX package.
 
-The plain PyTorch versions of the two CUDA kernels are held against JAX's
-XLA path and its Pallas kernels in interpret mode, at the shapes of
-tests/test_attention.py (S not a multiple of 8, masked keys, S=300 for
-several key blocks), fp32, atol 2e-5 / rtol 1e-4. The kernels themselves run
-only on a CUDA card (tests marked ``cuda``).
+The plain PyTorch versions of the four CUDA kernels (two forward, two
+backward) are held against JAX's XLA path and its Pallas kernels in
+interpret mode (``jax.vjp`` for the backward), at the shapes of
+tests/test_attention.py (S not a multiple of 8, masked keys with no fully
+masked row, S=300 for several key blocks, Sq != Sk), fp32, atol 2e-5 /
+rtol 1e-4. The kernels themselves run only on a CUDA card (tests marked
+``cuda``), where they are held against the plain versions.
 """
 
 import numpy as np
@@ -112,20 +114,175 @@ def test_attention_ref_matches_jax_xla(jx, masked):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+def _flash_mask(b, sk):
+    kv = np.ones((b, sk), np.float32)
+    kv[0, sk - 4:] = 0
+    if b > 1:
+        kv[1, 5:] = 0
+    return kv
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,masked", [
+    (2, 2, 21, 11, 16, True),    # Sq != Sk, S not a multiple of 8, masked
+    (1, 1, 300, 300, 8, False),  # several 128-key blocks
+])
+def test_flash_plain_backward_matches_jax(jx, b, h, sq, sk, d, masked):
+    """flash_attention_bwd_ref == jax.vjp of the Pallas flash kernel
+    (interpret mode), which runs _flash_bwd_kernel."""
+    import jax
+
+    jax_attn, jnp = jx
+    rng = np.random.default_rng(11)
+    q, k, v = _qkv(rng, b, h, sq, sk, d)
+    g = rng.normal(size=(b, h, sq, d)).astype(np.float32)
+    kv = _flash_mask(b, sk) if masked else None
+    scale = 1.0 / d ** 0.5
+    jkv = None if kv is None else jnp.asarray(kv)
+    _, vjp = jax.vjp(lambda x, y, z: jax_attn.flash_attention(
+        x, y, z, jkv, scale, 128, 128, True), *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    got = A.flash_attention_bwd_ref(*_torch(q, k, v, kv), scale,
+                                    torch.from_numpy(g))
+    for name, x, y in zip("qkv", got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), **TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("b,s,h,d,masked", [
+    (2, 13, 2, 16, True),    # S not a multiple of 8, masked (no full row)
+    (1, 300, 1, 8, False),   # long sequence
+])
+def test_packed_plain_backward_matches_jax(jx, b, s, h, d, masked):
+    """qkv_packed_attention_bwd_ref == jax.vjp of the packed Pallas kernel
+    (interpret mode), which runs _qkv_bwd_kernel; d_qkv in packed columns."""
+    import jax
+
+    jax_attn, jnp = jx
+    rng = np.random.default_rng(12)
+    qkv = rng.normal(size=(b, s, 3 * h * d)).astype(np.float32)
+    g = rng.normal(size=(b, s, h * d)).astype(np.float32)
+    kv = None
+    if masked:
+        kv = (rng.random((b, s)) > 0.25).astype(np.float32)
+        kv[:, 0] = 1                                  # no fully masked row
+    jkv = None if kv is None else jnp.asarray(kv)
+    _, vjp = jax.vjp(lambda x: jax_attn.qkv_packed_attention(
+        x, jkv, h, 1.0 / d ** 0.5, True), jnp.asarray(qkv))
+    (want,) = vjp(jnp.asarray(g))
+    got = A.qkv_packed_attention_bwd_ref(*_torch(qkv, kv), h, None,
+                                         torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_plain_backward_matches_autograd(packed, masked):
+    """Each plain backward == torch autograd of its plain forward (fp64, so
+    the two differ only by the order of sums)."""
+    rng = np.random.default_rng(13)
+    b, h, s, d = 2, 2, 19, 8
+    kv = None
+    if masked:
+        kv = torch.from_numpy((rng.random((b, s)) > 0.3).astype(np.float32))
+        kv[:, 0] = 1
+    if packed:
+        x = torch.from_numpy(rng.normal(size=(b, s, 3 * h * d))
+                             ).double().requires_grad_()
+        g = torch.from_numpy(rng.normal(size=(b, s, h * d))).double()
+        want = torch.autograd.grad(A.qkv_packed_attention_ref(x, kv, h),
+                                   x, g)
+        got = (A.qkv_packed_attention_bwd_ref(x.detach(), kv, h, None, g),)
+    else:
+        x = [torch.from_numpy(rng.normal(size=(b, h, n, d))).double()
+             .requires_grad_() for n in (s, s - 4, s - 4)]
+        kv = None if kv is None else kv[:, :s - 4]
+        g = torch.from_numpy(rng.normal(size=(b, h, s, d))).double()
+        want = torch.autograd.grad(A.flash_attention_ref(*x, kv), x, g)
+        got = A.flash_attention_bwd_ref(*(t.detach() for t in x), kv, None, g)
+    for w, y in zip(want, got):
+        torch.testing.assert_close(y.double(), w, atol=1e-5, rtol=1e-5)
+
+
+def test_fully_masked_row_follows_jax_xla(jx):
+    """A row whose keys are all masked: uniform weights over the Sk real keys
+    and no gradient into q or k, as JAX's attention_xla gives (the JAX
+    Pallas kernels pad Sk and differ there; ROADMAP section 3)."""
+    import jax
+
+    jax_attn, jnp = jx
+    rng = np.random.default_rng(14)
+    b, h, s, d = 2, 2, 20, 16
+    q, k, v = _qkv(rng, b, h, s, s, d)
+    g = rng.normal(size=(b, h, s, d)).astype(np.float32)
+    kv = np.ones((b, s), np.float32)
+    kv[0] = 0                                         # every key masked
+    kv[1, 7:] = 0
+    _, vjp = jax.vjp(lambda x, y, z: jax_attn.attention_xla(
+        x, y, z, jnp.asarray(kv > 0)), *map(jnp.asarray, (q, k, v)))
+    want_out = jax_attn.attention_xla(*map(jnp.asarray, (q, k, v)),
+                                      jnp.asarray(kv > 0))
+    want = vjp(jnp.asarray(g))
+    xs = [t.requires_grad_() for t in _torch(q, k, v)]
+    out = A.flash_attention(*xs, torch.from_numpy(kv))
+    got = torch.autograd.grad(out, xs, torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
+                               **TOL)
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), **TOL)
+    assert float(got[0][0].abs().max()) == 0.0
+    # JAX's Pallas forward pads Sk to 128 and its padded keys (k = v = 0)
+    # join such a row's softmax: there it gives the port's output x Sk/128.
+    pallas = np.asarray(jax_attn.flash_attention(
+        *map(jnp.asarray, (q, k, v)), jnp.asarray(kv), 1.0 / d ** 0.5,
+        128, 128, True))
+    np.testing.assert_allclose(pallas[0], out.detach().numpy()[0] * s / 128,
+                               **TOL)
+    np.testing.assert_allclose(pallas[1], out.detach().numpy()[1], **TOL)
+
+
+def _counts():
+    return tuple(getattr(w, f) for w in (A.qkv_packed_attention,
+                                         A.flash_attention)
+                 for f in ("launches", "bwd_launches"))
+
+
 def test_cpu_wrappers_run_plain_and_count_nothing():
     """On CPU tensors the wrappers return their plain version exactly and
     launch no kernel."""
     rng = np.random.default_rng(4)
     qkv = torch.from_numpy(rng.normal(size=(2, 5, 3 * 2 * 4)).astype(np.float32))
-    before = (A.qkv_packed_attention.launches, A.flash_attention.launches)
+    before = _counts()
     torch.testing.assert_close(A.qkv_packed_attention(qkv, None, 2),
                                A.qkv_packed_attention_ref(qkv, None, 2),
                                rtol=0, atol=0)
     q, k, v = A._unpack(qkv, 2)
     torch.testing.assert_close(A.flash_attention(q, k, v),
                                A.flash_attention_ref(q, k, v), rtol=0, atol=0)
-    assert (A.qkv_packed_attention.launches,
-            A.flash_attention.launches) == before
+    assert _counts() == before
+
+
+def test_cpu_backward_runs_plain_and_counts_nothing():
+    """A backward pass through either wrapper on the CPU returns the plain
+    backward exactly and launches nothing."""
+    rng = np.random.default_rng(5)
+    qkv = torch.from_numpy(rng.normal(size=(2, 9, 3 * 2 * 4)).astype(
+        np.float32)).requires_grad_()
+    g = torch.from_numpy(rng.normal(size=(2, 9, 8)).astype(np.float32))
+    kv = torch.ones(2, 9)
+    kv[1, 4:] = 0
+    before = _counts()
+    (got,) = torch.autograd.grad(A.qkv_packed_attention(qkv, kv, 2), qkv, g)
+    torch.testing.assert_close(
+        got, A.qkv_packed_attention_bwd_ref(qkv.detach(), kv, 2, None, g),
+        rtol=0, atol=0)
+    q, k, v = (t.detach().requires_grad_() for t in A._unpack(qkv, 2))
+    gq = g.reshape(2, 9, 2, 4).transpose(1, 2)        # a strided d_out
+    got = torch.autograd.grad(A.flash_attention(q, k, v, kv), (q, k, v), gq)
+    want = A.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), kv,
+                                     None, gq)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    assert _counts() == before
 
 
 def test_non_cpu_tensors_never_fall_back_to_plain():
@@ -189,13 +346,116 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype):
 
 @pytest.mark.cuda
 def test_kernel_backward_is_not_ported(cuda):
-    """Inference only: a backward pass through either kernel raises until
-    the backward kernels are ported."""
+    """The backward kernels once were not ported and a backward pass through
+    a kernel wrapper raised; now it launches backward kernel #3 / #4 once
+    per call and returns finite gradients of the inputs' shapes."""
     qkv = torch.randn(2, 9, 3 * 2 * 64, device=cuda, dtype=torch.bfloat16,
                       requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        A.qkv_packed_attention(qkv, None, 2).sum().backward()
+    before = A.qkv_packed_attention.bwd_launches
+    A.qkv_packed_attention(qkv, None, 2).sum().backward()
+    assert A.qkv_packed_attention.bwd_launches == before + 1
+    assert qkv.grad.shape == qkv.shape and torch.isfinite(qkv.grad).all()
     q = torch.randn(2, 2, 9, 64, device=cuda, dtype=torch.bfloat16,
                     requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        A.flash_attention(q, q, q).sum().backward()
+    before = A.flash_attention.bwd_launches
+    A.flash_attention(q, q, q).sum().backward()
+    assert A.flash_attention.bwd_launches == before + 1
+    assert q.grad.shape == q.shape and torch.isfinite(q.grad).all()
+
+
+def _close_to_plain(got, want, dtype):
+    """fp32: atol 1e-4 / rtol 1e-4. bf16 (against the plain version in fp32
+    on the same bf16 values): max abs error <= 2e-2 * max(1, max |plain|)."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                                   rtol=1e-4)
+    else:
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2e-2 * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,masked", [(6, 50, False), (4, 197, True)])
+def test_packed_backward_kernel_matches_plain_on_card(cuda, dtype, b, s,
+                                                      masked):
+    """Kernel #3 through autograd of the wrapper == the plain backward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(2)
+    qkv = torch.randn(b, s, 3 * 3 * 128, generator=gen).to(cuda, dtype)
+    g = torch.randn(b, s, 3 * 128, generator=gen).to(cuda, dtype)
+    kv = None
+    if masked:
+        kv = (torch.rand(b, s, generator=gen) > 0.2).float().to(cuda)
+        kv[:, 0] = 1
+    x = qkv.clone().requires_grad_()
+    before = A.qkv_packed_attention.bwd_launches
+    (got,) = torch.autograd.grad(A.qkv_packed_attention(x, kv, 3), x, g)
+    torch.cuda.synchronize()
+    assert A.qkv_packed_attention.bwd_launches == before + 1
+    want = A.qkv_packed_attention_bwd_ref(qkv.float(), kv, 3, None, g.float())
+    _close_to_plain(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,sk,d,masked", [
+    (3, 2, 147, 50, 128, False),   # the CrossMAE decoder's shape
+    (2, 2, 300, 300, 128, True),   # several tiles each way
+    (2, 3, 33, 40, 80, True),      # Dh 80
+])
+def test_flash_backward_kernel_matches_plain_on_card(cuda, dtype, b, h, sq,
+                                                     sk, d, masked):
+    """Kernel #4 through autograd of the wrapper, on strided (B, S, H, Dh)
+    views with a fully masked row, == the plain backward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(b, n, h, d, generator=gen).to(cuda, dtype)
+               .transpose(1, 2).requires_grad_() for n in (sq, sk, sk))
+    g = torch.randn(b, h, sq, d, generator=gen).to(cuda, dtype)
+    kv = None
+    if masked:
+        kv = torch.ones(b, sk, device=cuda)
+        kv[0] = 0                      # fully masked: uniform P, no dq/dk
+        kv[1, sk // 3:] = 0
+    before = A.flash_attention.bwd_launches
+    got = torch.autograd.grad(A.flash_attention(q, k, v, kv), (q, k, v), g)
+    torch.cuda.synchronize()
+    assert A.flash_attention.bwd_launches == before + 1
+    want = A.flash_attention_bwd_ref(q.detach().float(), k.detach().float(),
+                                     v.detach().float(), kv, None, g.float())
+    for x, y in zip(got, want):
+        _close_to_plain(x, y, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_on_decoder_split_views_on_card(cuda, dtype):
+    """Kernels #2 and #4 on the CrossMAE decoder's layout: q a (B, Sq, H, Dh)
+    view and k/v the two halves of one (B, Sk, 2, H, Dh) projection output,
+    seen as (B, H, Sk, Dh) with no copy. Forward and gradients (through
+    autograd, into the packed kv tensor) == the plain versions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(4)
+    b, h, sq, sk, d = 5, 2, 147, 50, 128
+    q_rows = torch.randn(b, sq, h, d, generator=gen).to(cuda, dtype)
+    kv_rows = torch.randn(b, sk, 2, h, d, generator=gen).to(cuda, dtype)
+    g = torch.randn(b, sq, h, d, generator=gen).to(cuda, dtype).transpose(1, 2)
+    q_rows.requires_grad_()
+    kv_rows.requires_grad_()
+    q = q_rows.transpose(1, 2)
+    k, v = kv_rows[:, :, 0].transpose(1, 2), kv_rows[:, :, 1].transpose(1, 2)
+    assert k.stride() == (sk * 2 * h * d, d, 2 * h * d, 1)
+    before = (A.flash_attention.launches, A.flash_attention.bwd_launches)
+    out = A.flash_attention(q, k, v)
+    d_q, d_kv = torch.autograd.grad(out, (q_rows, kv_rows), g)
+    torch.cuda.synchronize()
+    assert (A.flash_attention.launches,
+            A.flash_attention.bwd_launches) == (before[0] + 1, before[1] + 1)
+    plain = [t.detach().float() for t in (q, k, v)]
+    _close_to_plain(out, A.flash_attention_ref(*plain), dtype)
+    want = A.flash_attention_bwd_ref(*plain, None, None, g.float())
+    got = (d_q.transpose(1, 2), d_kv[:, :, 0].transpose(1, 2),
+           d_kv[:, :, 1].transpose(1, 2))
+    for x, y in zip(got, want):
+        _close_to_plain(x, y, dtype)

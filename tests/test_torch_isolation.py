@@ -48,7 +48,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
     (the kernels build at their first launch)."""
     code = ("import sys, mae_clip_torch, mae_clip_torch.serve, "
             "mae_clip_torch.models, mae_clip_torch.interop.from_jax, "
-            "mae_clip_torch.ops.attention; "
+            "mae_clip_torch.ops.attention, mae_clip_torch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

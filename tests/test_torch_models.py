@@ -237,16 +237,20 @@ def test_sincos_and_patchify_match_jax():
 
 
 def test_unported_paths_raise():
-    _, tcfg = _configs(dict(mae=dict(enabled=True, decoder_style="cross",
+    """The MAE-paper 'full' decoder's forward and the ResNet50 tower are not
+    ported yet and raise; the 'cross' decoder runs."""
+    _, tcfg = _configs(dict(mae=dict(enabled=True, decoder_style="full",
                                      decoder_dim=16, decoder_depth=1,
-                                     decoder_heads=1)))
+                                     decoder_heads=2)))
     model = CLIPModel(tcfg, DistilBertConfig(**TEXT), ViTConfig(**VIT),
                       device="cpu")
     img = torch.zeros(1, 16, 16, 3)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="MAE-pretraining"):
         model.image_encoder(img)
-    with pytest.raises(NotImplementedError):
-        model.image_encoder.decoder_blocks[0](img, img)
+    cross = CLIPModel(tcfg.replace(mae=dataclasses.replace(
+        tcfg.mae, decoder_style="cross")), DistilBertConfig(**TEXT),
+        ViTConfig(**VIT), device="cpu")
+    assert cross.image_encoder(img).pred_patches.shape == (1, 3, 192)
     with pytest.raises(NotImplementedError):
         CLIPModel(tcfg.replace(model_name="resnet50",
                                mae=torch_config.MAEConfig()),

@@ -1,0 +1,483 @@
+"""The port's training step (mae_clip_torch.train) against the JAX package's.
+
+A flagship-shaped model cut to two layers of width 32 (16x16 images, patch
+8, CrossMAE decoder of two blocks, tanh GELU, dropout 0) with the JAX
+model's parameter tree, filled from a numpy seed and converted through
+``state_dict_from_flax``. The JAX reference
+runs its Pallas attention kernels in interpret mode: the packed kernels
+(#1/#3) in the encoder, the flash kernels (#2/#4) in the decoder. The MAE
+mask indices come from JAX's ``random_masking`` and are fed to both sides.
+fp32 on the CPU.
+
+Tolerances: values atol 1e-4 / rtol 1e-4 (as the tower tests); gradients
+atol 1e-5 / rtol 1e-3 (sums of many small products in another order);
+parameters after AdamW updates atol 1e-6 / rtol 1e-5, except where a
+step's gradient is below 1e-6 in magnitude: Adam's first steps divide by
+|g|, so there a rounding-level difference in g moves the update by up to the
+learning rate, and the atol is 2 * lr * steps.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mae_clip_tpu import config as jax_config
+from mae_clip_tpu.models import clip as jax_clip
+from mae_clip_tpu.models import distilbert as jax_distilbert
+from mae_clip_tpu.models import vit as jax_vit
+from mae_clip_tpu.ops import losses as jax_losses
+from mae_clip_tpu.ops import masking as jax_masking
+from mae_clip_tpu.train import loop as jax_loop
+from mae_clip_tpu.train import optim as jax_optim
+from mae_clip_tpu.train.state import TrainState as JaxTrainState
+from mae_clip_torch import config as torch_config
+from mae_clip_torch.interop.from_jax import state_dict_from_flax
+from mae_clip_torch.models import CLIPModel, DistilBertConfig, ViTConfig
+from mae_clip_torch.ops import losses as torch_losses
+from mae_clip_torch.ops.masking import MaskingResult, random_masking
+from mae_clip_torch.train import (TrainState, make_eval_step, make_optimizer,
+                                  make_train_step, param_groups,
+                                  precompute_text_features)
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+GRAD_TOL = dict(atol=1e-5, rtol=1e-3)
+B = 4
+TEXT = dict(vocab_size=50, dim=32, n_layers=2, n_heads=2, hidden_dim=64,
+            max_position_embeddings=32)
+VIT = dict(image_size=16, patch_size=8, dim=32, depth=2, n_heads=2)
+CFG = dict(model_name="vit_s16", image_embedding=32, projection_dim=8,
+           size=16, batch_size=B, compute_dtype="float32", dropout=0.0,
+           gelu_impl="tanh", lr=1e-3)
+MAE = dict(enabled=True, decoder_style="cross", mask_ratio=0.5,
+           decoder_dim=32, decoder_depth=2, decoder_heads=2,
+           decoder_attn_impl="pallas")
+N_PATCHES = (16 // 8) ** 2
+
+
+def _configs(**kw):
+    mae = dict(MAE, **kw.pop("mae", {}))
+    base = dict(CFG, **kw)
+    return (jax_config.Config(**base, mae=jax_config.MAEConfig(**mae)),
+            torch_config.Config(**base, mae=torch_config.MAEConfig(**mae)))
+
+
+def _batch(seed=0, cached=True, padded=True):
+    """uint8 patches, cached text features or tokens, a padded last row."""
+    rng = np.random.default_rng(seed)
+    batch = {"image": rng.integers(0, 256, (B, N_PATCHES, 192)).astype(
+        np.uint8)}
+    if cached:
+        batch["text_features"] = rng.normal(size=(B, 32)).astype(np.float32)
+    else:
+        batch["input_ids"] = rng.integers(0, 50, (B, 9)).astype(np.int32)
+        mask = np.ones((B, 9), np.int32)
+        mask[1, 5:] = 0
+        batch["attention_mask"] = mask
+    if padded:
+        batch["valid"] = np.array([True] * (B - 1) + [False])
+    return batch
+
+
+def _jax_masking(rng, step):
+    """The masks JAX's train step draws at ``step``."""
+    return jax_masking.random_masking(
+        jax.random.fold_in(jax.random.fold_in(rng, step), 2), B, N_PATCHES,
+        MAE["mask_ratio"])
+
+
+def _torch_masking(m) -> MaskingResult:
+    """JAX's int32 indices as int64 (what torch's gathers take)."""
+    return MaskingResult(*(torch.tensor(np.asarray(x, np.float32)) if i == 2
+                           else torch.tensor(np.asarray(x, np.int64))
+                           for i, x in enumerate(m)))
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(np.asarray(v)).long()
+            if k == "input_ids" else torch.from_numpy(np.asarray(v))
+            for k, v in batch.items()}
+
+
+def _jax_model(jcfg):
+    return jax_clip.CLIPModel(
+        jcfg, text_config=jax_distilbert.DistilBertConfig(**TEXT),
+        vit_config=jax_vit.ViTConfig(**VIT), attn_impl="pallas_qkv",
+        attn_interpret=True)
+
+
+def _torch_model(tcfg, params):
+    model = CLIPModel(tcfg, DistilBertConfig(**TEXT), ViTConfig(**VIT),
+                      device="cpu")
+    model.load_state_dict(state_dict_from_flax(
+        params, tcfg, model.text_config, model.vit_config), strict=True)
+    return model
+
+
+def _seeded_params(jmodel, seed=0):
+    """The JAX model's parameter tree (``jax.eval_shape`` of its ``init``:
+    no compile) filled from a numpy seed: kernels normal / sqrt(fan_in),
+    LayerNorm scales 1 + 0.1 * normal, biases, tables and tokens
+    0.02 * normal (nonzero biases exercise more than zeros)."""
+    rng = np.random.default_rng(seed)
+    batch = {k: jnp.asarray(v) for k, v in _batch(cached=False).items()
+             if k != "valid"}
+    shapes = jax.eval_shape(lambda r: jmodel.init(
+        r, batch, mask_rng=jax.random.PRNGKey(1)), jax.random.PRNGKey(0))
+
+    def fill(path, leaf):
+        name = str(path[-1].key)
+        x = rng.normal(size=leaf.shape).astype(np.float32)
+        if name == "kernel":
+            return x / np.sqrt(leaf.shape[0])
+        return 1.0 + 0.1 * x if name == "scale" else 0.02 * x
+
+    return jax.tree_util.tree_map_with_path(fill, shapes["params"])
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """The JAX model and weights, shared by the tests of this file."""
+    jcfg, tcfg = _configs()
+    jmodel = _jax_model(jcfg)
+    return jcfg, tcfg, jmodel, _seeded_params(jmodel)
+
+
+@pytest.fixture(scope="module")
+def grad_fn(setup):
+    """jax.grad of the JAX loss (its train step's), compiled once."""
+    jmodel = setup[2]
+    return jax.jit(jax.grad(
+        lambda p, batch, masking: _jax_forward(jmodel, p, batch,
+                                               masking)["loss"]))
+
+
+def _jax_forward(jmodel, params, batch, masking):
+    images = jax_loop._prep_images(jnp.asarray(batch["image"]), None, True,
+                                   jmodel.cfg)
+    jbatch = dict({k: jnp.asarray(v) for k, v in batch.items()},
+                  image=images)
+    return jmodel.apply({"params": params}, jbatch, train=True,
+                        mae_masking=masking)
+
+
+# ---------------------------------------------------------------------------
+# Losses and masking
+# ---------------------------------------------------------------------------
+
+def test_clip_soft_ce_loss_matches_jax():
+    """Value and gradients, with a padded row and a temperature != 1 (the
+    /T on logits vs *T on targets asymmetry; targets not detached)."""
+    rng = np.random.default_rng(0)
+    img, txt = (rng.normal(size=(5, 6)).astype(np.float32) for _ in range(2))
+    valid = np.array([True, True, False, True, True])
+    for v in (None, valid):
+        jv = None if v is None else jnp.asarray(v)
+        want, want_g = jax.value_and_grad(
+            lambda a, b: jax_losses.clip_soft_ce_loss(a, b, 0.7, jv),
+            argnums=(0, 1))(jnp.asarray(img), jnp.asarray(txt))
+        ti, tt = (torch.from_numpy(x).requires_grad_() for x in (img, txt))
+        got = torch_losses.clip_soft_ce_loss(
+            ti, tt, 0.7, None if v is None else torch.from_numpy(v))
+        got_g = torch.autograd.grad(got, (ti, tt))
+        np.testing.assert_allclose(float(got.detach()), float(want), **TOL)
+        for x, y in zip(got_g, want_g):
+            np.testing.assert_allclose(x.numpy(), np.asarray(y), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("norm_pix", [True, False])
+def test_mae_reconstruction_loss_matches_jax(norm_pix):
+    rng = np.random.default_rng(1)
+    pred, target = (rng.normal(size=(3, 5, 12)).astype(np.float32)
+                    for _ in range(2))
+    mask = (rng.random((3, 5)) > 0.5).astype(np.float32)
+    want, want_g = jax.value_and_grad(
+        lambda p: jax_losses.mae_reconstruction_loss(
+            p, jnp.asarray(target), jnp.asarray(mask), norm_pix))(
+                jnp.asarray(pred))
+    tp = torch.from_numpy(pred).requires_grad_()
+    got = torch_losses.mae_reconstruction_loss(
+        tp, torch.from_numpy(target), torch.from_numpy(mask), norm_pix)
+    (got_g,) = torch.autograd.grad(got, tp)
+    np.testing.assert_allclose(float(got.detach()), float(want), **TOL)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), **GRAD_TOL)
+
+
+def test_cross_entropy_soft_matches_jax():
+    rng = np.random.default_rng(2)
+    preds = rng.normal(size=(4, 6)).astype(np.float32)
+    targets = rng.dirichlet(np.ones(6), 4).astype(np.float32)
+    for red in ("none", "mean"):
+        np.testing.assert_allclose(
+            torch_losses.cross_entropy_soft(
+                torch.from_numpy(preds), torch.from_numpy(targets),
+                red).numpy(),
+            np.asarray(jax_losses.cross_entropy_soft(
+                jnp.asarray(preds), jnp.asarray(targets), red)), **TOL)
+
+
+@pytest.mark.parametrize("n,ratio", [(196, 0.75), (4, 0.5), (10, 0.3)])
+def test_random_masking_invariants(n, ratio):
+    """A fixed visible count int(N(1-r)); keep + masked is a permutation;
+    ids_restore inverts it; the mask is 0 exactly at the kept patches."""
+    m = random_masking(3, n, ratio, torch.Generator().manual_seed(0))
+    keep = int(n * (1 - ratio))
+    assert m.ids_keep.shape == (3, keep)
+    assert m.ids_masked.shape == (3, n - keep)
+    perm = torch.cat([m.ids_keep, m.ids_masked], dim=1)
+    assert torch.equal(perm.sort(dim=1).values,
+                       torch.arange(n).expand(3, n))
+    assert torch.equal(torch.gather(perm, 1, m.ids_restore),
+                       torch.arange(n).expand(3, n))
+    assert torch.equal(m.mask.sum(1), torch.full((3,), float(n - keep)))
+    assert float(torch.gather(m.mask, 1, m.ids_keep).abs().sum()) == 0.0
+    again = random_masking(3, n, ratio, torch.Generator().manual_seed(0))
+    assert all(torch.equal(a, b) for a, b in zip(m, again))
+    assert all(x.device.type == "cpu" for x in m)
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="needs a host with no "
+                    "CUDA card")
+def test_random_masking_defaults_to_the_card():
+    """Without a generator or a device the masks go to the card, as every
+    entry point of the port does, and the call raises when there is none."""
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        random_masking(2, 16, 0.75)
+
+
+# ---------------------------------------------------------------------------
+# Model forward and gradients
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cached,from_masked", [(True, True),
+                                                (False, False)])
+def test_clip_forward_train_matches_jax(setup, cached, from_masked):
+    """CLIPModel.forward(train=True): embeddings and losses, cached or inline
+    (frozen) text, contrastive features from the masked or the full pass;
+    and, in the flagship case (cached text, masked pass), MAEViT.forward
+    (the masked pass + CrossMAE decoder) on its own. JAX's mask indices feed
+    both sides."""
+    _, _, jmodel, params = setup
+    jcfg, tcfg = _configs(mae=dict(clip_from_masked=from_masked))
+    jm = jmodel.clone(cfg=jcfg)
+    batch = _batch(4, cached=cached)
+    masking = _jax_masking(jax.random.PRNGKey(6), 0)
+    patches = np.random.default_rng(3).normal(
+        size=(B, N_PATCHES, 192)).astype(np.float32)
+
+    def jax_side(p):
+        if not cached:
+            return _jax_forward(jm, p, batch, masking), ()
+        mae = jm.apply({"params": p}, jnp.asarray(patches), None,
+                       masking=masking,
+                       method=lambda mod, x, r, masking: mod.image_encoder(
+                           x, r, masking=masking))
+        return _jax_forward(jm, p, batch, masking), mae
+
+    want, want_mae = jax.jit(jax_side)(params)
+    tmodel = _torch_model(tcfg, params)
+    with torch.no_grad():
+        got = tmodel(_prepped(_torch_batch(batch), tcfg), train=True,
+                     masking=_torch_masking(masking))
+        got_mae = tmodel.image_encoder(torch.from_numpy(patches),
+                                       masking=_torch_masking(masking))
+    assert tmodel.training and not tmodel.text_encoder.training
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   **TOL, err_msg=k)
+    assert got_mae.pred_patches.shape == (B, 2, 192)
+    assert len(want_mae) == (4 if cached else 0)
+    for name, x, y in zip(got_mae._fields, got_mae, want_mae):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), **TOL,
+                                   err_msg=name)
+
+
+def _prepped(batch, cfg):
+    from mae_clip_torch.train.loop import _prep_images
+    return dict(batch, image=_prep_images(batch["image"], cfg))
+
+
+def test_every_trainable_grad_matches_jax(setup, grad_fn):
+    """The flagship path (cached text): every trainable parameter's gradient
+    against jax.grad; the frozen text tower has none."""
+    jcfg, tcfg, jmodel, params = setup
+    batch = _batch(7)
+    masking = _jax_masking(jax.random.PRNGKey(7), 0)
+    want = state_dict_from_flax(
+        jax.tree_util.tree_map(np.asarray, grad_fn(params, batch, masking)),
+        tcfg, DistilBertConfig(**TEXT), ViTConfig(**VIT))
+    tmodel = _torch_model(tcfg, params)
+    tmodel(_prepped(_torch_batch(batch), tcfg), train=True,
+           masking=_torch_masking(masking))["loss"].backward()
+    trainable = 0
+    for name, p in tmodel.named_parameters():
+        if name.startswith("text_encoder"):
+            assert not p.requires_grad and p.grad is None, name
+            continue
+        trainable += 1
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   **GRAD_TOL, err_msg=name)
+    assert trainable > 40
+
+
+# ---------------------------------------------------------------------------
+# The train step, the eval step, the text cache
+# ---------------------------------------------------------------------------
+
+def _assert_params_match(tmodel, jparams, small, tcfg, steps):
+    """``small``: where a step's gradient was below 1e-6 in magnitude."""
+    want = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jparams),
+                                tcfg, tmodel.text_config, tmodel.vit_config)
+    got = tmodel.state_dict()
+    for name, w in want.items():
+        atol = torch.where(small.get(name, torch.tensor(False)),
+                           2 * tcfg.lr * steps, 1e-6)
+        err = (got[name] - w).abs()
+        bad = err > atol + 1e-5 * w.abs()
+        assert not bool(bad.any()), (name, float(err.max()))
+
+
+def test_train_steps_match_jax(setup):
+    """One and two steps of make_train_step against JAX's jitted step: the
+    metrics, and every parameter after each AdamW update (frozen text
+    unchanged)."""
+    jcfg, tcfg, jmodel, params = setup
+    tx = jax_optim.make_optimizer(jcfg, params)
+    rng0 = jax.random.PRNGKey(2)
+    jstate = JaxTrainState.create(jax.tree_util.tree_map(jnp.array, params),
+                                  tx, jax.random.PRNGKey(2))  # donated
+    jstep = jax_loop.make_train_step(jmodel, tx, jcfg)
+    tmodel = _torch_model(tcfg, params)
+    opt = make_optimizer(tcfg, tmodel)
+    state = TrainState.create(tmodel, opt)
+    step = make_train_step(tmodel, opt, tcfg)
+    text_before = {k: v.clone() for k, v in tmodel.state_dict().items()
+                   if k.startswith("text_encoder")}
+    small = {}
+    for i, batch in enumerate([_batch(8), _batch(9)]):
+        masking = _jax_masking(rng0, i)
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
+        tm = step(state, _torch_batch(batch), masking=_torch_masking(masking))
+        for name, p in tmodel.named_parameters():   # this step's gradients
+            if p.grad is not None:
+                small[name] = small.get(name, False) | (p.grad.abs() < 1e-6)
+        assert state.step == i + 1 == int(jstate.step)
+        assert set(tm) == set(jm)
+        for k in jm:
+            assert tm[k].dim() == 0
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), **TOL,
+                                       err_msg=k)
+        _assert_params_match(tmodel, jstate.params, small, tcfg, i + 1)
+    for k, v in text_before.items():
+        assert torch.equal(tmodel.state_dict()[k], v), k
+
+
+def test_eval_step_matches_jax(setup):
+    jcfg, tcfg, jmodel, params = setup
+    tx = jax_optim.make_optimizer(jcfg, params)
+    rng0 = jax.random.PRNGKey(3)
+    jstate = JaxTrainState.create(params, tx, rng0)
+    batch = _batch(10)
+    want = jax_loop.make_eval_step(jmodel, jcfg)(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    tmodel = _torch_model(tcfg, params)
+    state = TrainState.create(tmodel, make_optimizer(tcfg, tmodel))
+    got = make_eval_step(tmodel, tcfg)(state, _torch_batch(batch),
+                                       masking=_torch_masking(
+                                           _jax_masking(rng0, 0)))
+    assert not tmodel.training
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), **TOL,
+                                   err_msg=k)
+
+
+def test_precompute_text_features_matches_jax(setup):
+    """The frozen-text cache, with a ragged last batch."""
+    jcfg, tcfg, jmodel, params = setup
+
+    @dataclasses.dataclass
+    class Captions:
+        input_ids: np.ndarray
+        attention_mask: np.ndarray
+
+        def __len__(self):
+            return len(self.input_ids)
+
+    rng = np.random.default_rng(11)
+    mask = np.ones((5, 7), np.int32)
+    mask[2, 3:] = 0
+    data = Captions(rng.integers(0, 50, (5, 7)).astype(np.int32), mask)
+    want = jax_loop.precompute_text_features(jmodel, {"params": params},
+                                             data, batch_size=4)
+    got = precompute_text_features(_torch_model(tcfg, params), data,
+                                   batch_size=4)
+    assert got.shape == (5, 32) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_optimizer_groups_match_jax_labels(setup):
+    """Labels from name prefixes as the JAX label tree; AdamW groups with
+    the py recipe's lr / weight decay; frozen params in no group."""
+    jcfg, tcfg, _, params = setup
+    scfg = tcfg.replace(contrastive_loss="siglip")
+    pw = _with_logit(params)
+    tmodel = _torch_model(scfg, pw)
+    labels = param_groups(scfg, tmodel)
+    names = ["head", "image", "text", "logit", "frozen"]
+    jlabels = state_dict_from_flax(jax.tree_util.tree_map(
+        lambda lab, p: np.full(np.shape(p), names.index(lab), np.float32),
+        jax_optim.param_groups(jcfg, pw), pw), scfg, tmodel.text_config,
+        tmodel.vit_config)
+    for name, label in labels.items():
+        assert label == names[int(jlabels[name].flatten()[0])], name
+    assert labels["logit_scale"] == "logit"
+    assert labels["image_projection.fc.weight"] == "head"
+    opt = make_optimizer(scfg, tmodel)
+    by_name = {g["name"]: g for g in opt.param_groups}
+    assert set(by_name) == {"head", "image", "logit"}
+    assert by_name["logit"]["weight_decay"] == 0.0
+    assert by_name["image"]["weight_decay"] == tcfg.weight_decay > 0
+    n_opt = sum(len(g["params"]) for g in opt.param_groups)
+    assert n_opt == sum(p.requires_grad for p in tmodel.parameters())
+
+
+def _with_logit(params):
+    return dict(params, logit_scale=np.float32(2.3),
+                logit_bias=np.float32(-10.0))
+
+
+def test_unported_options_raise(setup):
+    _, tcfg, _, params = setup
+    tmodel = _torch_model(tcfg, params)
+    for kw in (dict(optimizer="lamb"), dict(optimizer="lion"),
+               dict(lr_schedule="cosine", decay_steps=10),
+               dict(grad_clip_norm=1.0)):
+        with pytest.raises(NotImplementedError):
+            make_optimizer(tcfg.replace(**kw), tmodel)
+    opt = make_optimizer(tcfg, tmodel)
+    for kw in (dict(contrastive_loss="siglip"),
+               dict(contrastive_loss="clip"),
+               dict(learnable_temperature=True),
+               dict(loss_chunk_size=4)):
+        with pytest.raises(NotImplementedError):
+            make_train_step(tmodel, opt, tcfg.replace(**kw))
+    with pytest.raises(NotImplementedError):
+        make_train_step(tmodel, opt, tcfg, accum_steps=2)
+    tmodel.cfg = tcfg.replace(ema_decay=0.99)
+    with pytest.raises(NotImplementedError):
+        TrainState.create(tmodel, opt)
+    tmodel.cfg = tcfg
+    state = TrainState.create(tmodel, opt)
+    big = {"image": np.zeros((B, 32, 32, 3), np.uint8),
+           "text_features": np.zeros((B, 32), np.float32)}
+    with pytest.raises(NotImplementedError, match="augment"):
+        make_train_step(tmodel, opt, tcfg)(state, big)
+    with pytest.raises(ValueError, match="frozen"):
+        precompute_text_features(
+            _torch_model(tcfg.replace(frozen_text_eval_mode=False), params),
+            None)
