@@ -5,9 +5,10 @@
 
 It builds the port's CUDA kernels from ``mae_clip_torch/csrc`` (one nvcc per
 source, started together) and holds each kernel, forward and backward,
-against its plain PyTorch version on the card. Then it drives the port's two
-paths through their entry points, each with the kernels' launch counts set to
-0 just before and read just after:
+against its plain PyTorch version on the card, and the in-step augmentation
+against the CPU's. Then it drives the port's three paths through their entry
+points, each with the kernels' launch counts set to 0 just before and read
+just after:
 
 * serving (slice 1): the flagship model (ViT-S/16 + DistilBERT, random
   seeded weights, bf16) over HTTP, with the card's embeddings checked
@@ -15,10 +16,16 @@ paths through their entry points, each with the kernels' launch counts set to
 * training (slice 2): the flagship CLIP+CrossMAE training step at batch 256
   (cached frozen-text features, uint8 patches normalised in the step, AdamW),
   checked for a falling loss, moving trainable and fixed frozen weights, and
-  against one step on the CPU.
+  against one step on the CPU;
+* MAE pretraining (slice 3): ``make_mae_pretrain_step`` on
+  ``mae_pretrain_config`` at batch 256 (uint8 sources at 256 px cropped and
+  flipped in the step, the MAE-paper decoder, the masked patch-embed kernel
+  opted in), checked for exact launches per step, a falling loss, moving
+  weights, evals that agree at one state, and against one step on the CPU.
 
-Last, it times each kernel at the training shapes beside its bound, its
-plain version and the PyTorch call that computes the same thing. Any failed
+Last, it times each kernel at the training and pretraining shapes beside
+its bound, its plain version and the PyTorch call that computes the same
+thing. Any failed
 check raises, so the run exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; before it come the ``{"kernels": [...]}``
 summary and the card's name and power limit.
@@ -82,6 +89,7 @@ def build_kernels() -> None:
                 log(f"  {src}: {line.strip()}")
     _build.load_attention()
     _build.load_attention_bwd()
+    _build.load_patch_embed()
 
 
 # ---------------------------------------------------------------------------
@@ -137,9 +145,10 @@ def check_kernels() -> dict:
 
     # Packed qkv: the ViT-S/16 flagship block (3 heads of 128, S=197) at
     # B=64, the training step's masked encoder pass (CLS + 49 visible
-    # tokens) at B=256 with no mask, and a padding mask at S=50.
+    # tokens) at B=256 with no mask, the MAE-paper decoder (CLS + 196
+    # tokens, 2 heads of 128) at B=256, and a padding mask at S=50.
     for b, s, h, masked in ((64, 197, 3, False), (256, 50, 3, False),
-                            (8, 50, 3, True)):
+                            (256, 197, 2, False), (8, 50, 3, True)):
         qkv = torch.randn(b, s, 3 * h * 128, generator=gen).to(dev)
         kv = _padding_mask(gen, b, s, dev) if masked else None
         run("qkv_packed_attention",
@@ -214,28 +223,30 @@ def check_backward_kernels(worst: dict) -> None:
         worst[name] = max(worst.get(name, 0.0), *errs)
         log(f"  {name} {str(dt)[6:]} {label}: max abs err {max(errs):.3e}")
 
-    # Packed (kernel #3): the step's encoder shape, a padding mask at S=50,
-    # and S=197 (several query and key tiles) through autograd.
-    for b, s, masked, autograd in ((256, 50, False, False),
-                                   (8, 50, True, False),
-                                   (16, 197, True, True)):
-        qkv0, g0 = randn(b, s, 3 * 3 * 128), randn(b, s, 3 * 128)
+    # Packed (kernel #3): the step's encoder shape, the MAE-paper decoder's
+    # (2 heads, S=197: several query and key tiles), a padding mask at S=50,
+    # and S=197 through autograd.
+    for b, s, h, masked, autograd in ((256, 50, 3, False, False),
+                                      (256, 197, 2, False, False),
+                                      (8, 50, 3, True, False),
+                                      (16, 197, 3, True, True)):
+        qkv0, g0 = randn(b, s, 3 * h * 128), randn(b, s, h * 128)
         kv = _padding_mask(gen, b, s, dev) if masked else None
         for dt in (torch.float32, torch.bfloat16):
             qkv, g = qkv0.to(dt), g0.to(dt)
             if autograd:
                 x = qkv.clone().requires_grad_()
-                got = torch.autograd.grad(A.qkv_packed_attention(x, kv, 3),
+                got = torch.autograd.grad(A.qkv_packed_attention(x, kv, h),
                                           x, g)
             else:
                 got = (A._launch_packed_bwd(
-                    qkv, A._mask_arg(kv, b, s, qkv.device), 3, 128 ** -0.5,
+                    qkv, A._mask_arg(kv, b, s, qkv.device), h, 128 ** -0.5,
                     g),)
             torch.cuda.synchronize()
-            want = (A.qkv_packed_attention_bwd_ref(qkv.float(), kv, 3, None,
+            want = (A.qkv_packed_attention_bwd_ref(qkv.float(), kv, h, None,
                                                    g.float()),)
             check("qkv_packed_attention_bwd",
-                  f"({b},{s},1152){' masked' if masked else ''}"
+                  f"({b},{s},{3 * h * 128}){' masked' if masked else ''}"
                   f"{' autograd' if autograd else ''}", got, want, dt)
 
     # Flash (kernel #4): the decoder's shape with its strided head views,
@@ -279,6 +290,85 @@ def check_backward_kernels(worst: dict) -> None:
                   f"{'' if mask_kind is None else ' ' + mask_kind + ' mask'}"
                   f"{' autograd' if layout == 'decoder' else ''}",
                   got, want, dt)
+
+
+# The MAE-pretrain step's masked patch embedding: (B, N, Din) patches,
+# K visible rows, Dm outputs.
+PATCH_EMBED_SHAPE = (256, 196, 768, 49, 384)
+
+
+def _patch_embed_inputs(gen, shape, dtype):
+    b, n, d_in, k, d_m = shape
+    patches = torch.randn(b, n, d_in, generator=gen)
+    ids = torch.argsort(torch.rand(b, n, generator=gen), dim=1)[:, :k]
+    w = torch.randn(d_m, d_in, generator=gen) * d_in ** -0.5
+    bias = torch.randn(d_m, generator=gen) * 0.02
+    return (patches.to(DEVICE, dtype), ids.to(DEVICE), w.to(DEVICE, dtype),
+            bias.to(DEVICE, dtype))
+
+
+def check_patch_embed_kernel(worst: dict) -> None:
+    """Kernel #5 against its plain version on the card, fp32 and bf16, at
+    the pretrain step's shape and an odd one (ragged last row tile), and
+    once through autograd (its backward is plain torch)."""
+    from mae_clip_torch.ops import patch_embed as PE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(6)
+    name = "masked_patch_embed"
+    worst[name] = 0.0
+    for shape in (PATCH_EMBED_SHAPE, (3, 20, 48, 7, 40)):
+        for dt in (torch.float32, torch.bfloat16):
+            p, ids, w, b = _patch_embed_inputs(gen, shape, dt)
+            got = PE.masked_patch_embed(p, ids, w, b)
+            torch.cuda.synchronize()
+            want = PE.masked_patch_embed_ref(p.float(), ids, w.float(),
+                                             b.float())
+            err = _bwd_close(f"{name} {str(dt)[6:]} {shape}", got, want, dt)
+            worst[name] = max(worst[name], err)
+            log(f"  {name} {str(dt)[6:]} {shape}: max abs err {err:.3e}")
+    p, ids, w, b = _patch_embed_inputs(gen, PATCH_EMBED_SHAPE, torch.bfloat16)
+    g = torch.randn(*ids.shape, w.shape[0], generator=gen).to(DEVICE,
+                                                               torch.bfloat16)
+    xs = [t.clone().requires_grad_() for t in (p, w, b)]
+    ys = [t.float().clone().requires_grad_() for t in (p, w, b)]
+    got = torch.autograd.grad(PE.masked_patch_embed(xs[0], ids, *xs[1:]),
+                              xs, g)
+    want = torch.autograd.grad(PE.masked_patch_embed_ref(ys[0], ids, *ys[1:]),
+                               ys, g.float())
+    torch.cuda.synchronize()
+    errs = [_bwd_close(f"{name} autograd d{n}", x, y, torch.bfloat16)
+            for n, x, y in zip(("patches", "W", "b"), got, want)]
+    log(f"  {name} bf16 {PATCH_EMBED_SHAPE} autograd: max abs err of the "
+        f"gradients {max(errs):.3e}")
+
+
+def check_augment_on_card() -> float:
+    """The in-step crop + resample + flip and the eval resize on the card
+    against the CPU, given the same boxes and flips (drawn on the CPU), at
+    the pretrain step's geometry: uint8 sources of 256 px to 224 px. Within
+    1e-3 on the 0..255 scale."""
+    from mae_clip_torch.ops import augment
+
+    gen = torch.Generator().manual_seed(7)
+    src = torch.randint(0, 256, (16, 256, 256, 3), generator=gen,
+                        dtype=torch.uint8)
+    boxes = augment.sample_crop_boxes(gen, 16, 256)
+    flip = torch.rand(16, generator=gen) < 0.5
+    worst = 0.0
+    for what, card, cpu in (
+            ("crop + flip",
+             augment.crop_resize_flip(src.to(DEVICE),
+                                      tuple(x.to(DEVICE) for x in boxes),
+                                      flip.to(DEVICE), 224),
+             augment.crop_resize_flip(src, boxes, flip, 224)),
+            ("resize", augment.resize_batch(src.to(DEVICE), 224),
+             augment.resize_batch(src, 224))):
+        err = _close(f"augment {what}", card.cpu(), cpu, 1e-3)
+        log(f"  augment {what} (16, 256, 256, 3) -> 224: card vs CPU max abs "
+            f"err {err:.3e}")
+        worst = max(worst, err)
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -416,13 +506,13 @@ def _log_times(times: dict) -> None:
         spread = ""
         if len(r["ms_runs"]) > 1:
             spread = (f" (median of {len(r['ms_runs'])}: kernel "
-                      f"{[round(x, 4) for x in r['ms_runs']]}, sdpa "
+                      f"{[round(x, 4) for x in r['ms_runs']]}, library "
                       f"{[round(x, 4) for x in r['library_ms_runs']]})")
         log(f"  {name} [{r['shape']}]: device ms per call: kernel "
             f"{r['ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}), "
-            f"plain {r['plain_ms']:.4f}, sdpa {r['library_ms']:.4f}{spread}; "
-            f"wall ms per call with host dispatch: kernel "
-            f"{r['call_ms']:.4f}, sdpa {r['library_call_ms']:.4f}")
+            f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}"
+            f"{spread}; wall ms per call with host dispatch: kernel "
+            f"{r['call_ms']:.4f}, library {r['library_call_ms']:.4f}")
 
 
 def _sdpa_fwd_bwd(q, k, v, g):
@@ -492,6 +582,60 @@ def time_training_kernels() -> dict:
         lambda: A.flash_attention_bwd_ref(q, k, v, None, scale, g),
         _sdpa_fwd_bwd(q, k, v, g),
         *_bound_ms(2 * moved + q.numel() * elt, 5 * flops, dt), repeats=7)
+    log(f"  SM clock, max SM clock after: {clock_line()}")
+    _log_times(out)
+    return out
+
+
+def time_pretrain_kernels() -> dict:
+    """The MAE-pretrain step's kernels at its shapes (bf16): the masked
+    patch embedding (256, 196, 768) -> (256, 49, 384), and the MAE-paper
+    decoder's packed qkv (256, 197, 768), 2 heads of 128, forward and
+    backward. Each kernel is timed 7 times (median and spread)."""
+    import torch.nn.functional as F
+
+    from mae_clip_torch.ops import attention as A
+    from mae_clip_torch.ops import patch_embed as PE
+
+    dt = torch.bfloat16
+    gen = torch.Generator().manual_seed(8)
+    out = {}
+    log(f"  SM clock, max SM clock before: {clock_line()}")
+
+    b, n, d_in, k, d_m = PATCH_EMBED_SHAPE
+    p, ids, w, bias = _patch_embed_inputs(gen, PATCH_EMBED_SHAPE, dt)
+    elt = p.element_size()
+    moved = ((b * k * d_in + d_m * d_in + d_m + b * k * d_m) * elt
+             + ids.numel() * ids.element_size())
+    # The yardstick is two PyTorch calls: the gather, then F.linear.
+    out["masked_patch_embed"] = _timed(
+        f"patches ({b},{n},{d_in}) bf16, ids ({b},{k}), W ({d_m},{d_in}); "
+        f"library = take_along_dim + F.linear (two calls)",
+        lambda: PE.masked_patch_embed(p, ids, w, bias),
+        lambda: PE.masked_patch_embed_ref(p, ids, w, bias),
+        lambda: F.linear(torch.take_along_dim(p, ids[:, :, None], 1), w,
+                         bias),
+        *_bound_ms(moved, 2 * b * k * d_in * d_m, dt), repeats=7)
+
+    b, s, h, d = 256, 197, 2, 128
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(DEVICE, dt)
+    g = torch.randn(b, s, h * d, generator=gen).to(DEVICE, dt)
+    q, k_, v = A._unpack(qkv, h)
+    g4 = g.view(b, s, h, d).transpose(1, 2)
+    flops = 2 * b * h * s * s * d
+    shape = f"qkv ({b},{s},{3 * h * d}) bf16, {h} heads, no mask"
+    out["qkv_packed_attention"] = _timed(
+        shape, lambda: A.qkv_packed_attention(qkv, None, h),
+        lambda: A.qkv_packed_attention_ref(qkv, None, h),
+        lambda: F.scaled_dot_product_attention(q, k_, v),
+        *_bound_ms((qkv.numel() + g.numel()) * elt, 2 * flops, dt), repeats=7)
+    out["qkv_packed_attention_bwd"] = _timed(
+        shape + f", d_out ({b},{s},{h * d})",
+        lambda: A._launch_packed_bwd(qkv, None, h, d ** -0.5, g),
+        lambda: A.qkv_packed_attention_bwd_ref(qkv, None, h, d ** -0.5, g),
+        _sdpa_fwd_bwd(q, k_, v, g4),
+        *_bound_ms((2 * qkv.numel() + g.numel()) * elt, 5 * flops, dt),
+        repeats=7)
     log(f"  SM clock, max SM clock after: {clock_line()}")
     _log_times(out)
     return out
@@ -814,10 +958,12 @@ def check_against_cpu(model, rng: np.random.Generator) -> float:
 TRAIN_BATCH = 256
 TRAIN_SEQ = 64       # caption length of the cached text features (bench.py)
 # Kernel launches per step: 12 encoder blocks (packed qkv) and 4 CrossMAE
-# decoder blocks (flash), forward and backward; the text tower is cached.
+# decoder blocks (flash), forward and backward; the text tower is cached,
+# and the masked patch embedding takes the default route (not opted in).
 LAUNCHES_PER_STEP = {"qkv_packed_attention": 12,
                      "qkv_packed_attention_bwd": 12,
-                     "flash_attention": 4, "flash_attention_bwd": 4}
+                     "flash_attention": 4, "flash_attention_bwd": 4,
+                     "masked_patch_embed": 0}
 
 
 class Captions:
@@ -855,6 +1001,7 @@ def train_flagship(rng: np.random.Generator) -> tuple:
                                       make_train_step,
                                       precompute_text_features)
 
+    torch.cuda.reset_peak_memory_stats()
     model = build_train_model(TRAIN_BATCH, "bfloat16", "cuda")
     cfg, dev = model.cfg, model.device
     vocab = model.text_config.vocab_size
@@ -1036,6 +1183,167 @@ def check_train_step_against_cpu(rng: np.random.Generator) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the MAE-pretrain step at batch 256
+# ---------------------------------------------------------------------------
+
+PRETRAIN_BATCH = 256
+# Kernel launches per step: 12 encoder and 4 decoder blocks (packed qkv),
+# forward and backward, and one masked patch embedding (forward only).
+PRETRAIN_LAUNCHES_PER_STEP = {"qkv_packed_attention": 16,
+                              "qkv_packed_attention_bwd": 16,
+                              "masked_patch_embed": 1,
+                              "flash_attention": 0, "flash_attention_bwd": 0}
+
+
+def build_pretrain_model(batch: int, compute_dtype: str, device: str,
+                         seed: int = 0):
+    """``mae_pretrain_config`` (ViT-S/16 with 3 heads of 128, the MAE-paper
+    decoder: 4 blocks of 256 with 2 heads of 128) at full width, random
+    weights from ``seed``, with the masked patch-embed kernel opted in (the
+    JAX package's ``use_pallas_patch_embed``; off by default)."""
+    from mae_clip_torch import mae_pretrain_config
+    from mae_clip_torch.models import mae_vit_for
+
+    cfg = mae_pretrain_config(batch_size=batch, compute_dtype=compute_dtype)
+    model = mae_vit_for(cfg, device=device).init_weights(
+        torch.Generator().manual_seed(seed))
+    model.patch_embed.masked_kernel = True
+    return cfg, model
+
+
+def pretrain_mae(rng: np.random.Generator) -> tuple:
+    """``make_mae_pretrain_step`` at batch 256, bf16: uint8 sources
+    (256, 256, 256, 3) in two batches cycled, cropped to 224 and flipped in
+    the step. Checks the loss falls over 10 steps on one batch, every weight
+    moves, each kernel launches exactly as often per step as the model has
+    blocks, and two evals at one state agree."""
+    from mae_clip_torch.train import (TrainState, make_mae_eval_step,
+                                      make_mae_pretrain_step, make_optimizer)
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model = build_pretrain_model(PRETRAIN_BATCH, "bfloat16", "cuda")
+    dev, src = model.device, cfg.mae.aug_source_size
+    batches = [{
+        "image": torch.from_numpy(rng.integers(
+            0, 256, (PRETRAIN_BATCH, src, src, 3), np.uint8)).to(dev),
+        "valid": torch.ones(PRETRAIN_BATCH, dtype=torch.bool, device=dev)}
+        for _ in range(2)]
+    opt = make_optimizer(cfg, model)
+    state = TrainState.create(model, opt, seed=0, cfg=cfg)
+    step = make_mae_pretrain_step(model, opt, cfg)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    steps = 0
+
+    def run(batch):
+        nonlocal steps
+        steps += 1
+        return step(state, batch)
+
+    counts = _reset_counts()
+    total = [float(run(batches[0])["loss"]) for _ in range(10)]
+    if not np.isfinite(total).all():
+        raise AssertionError(f"non-finite pretraining loss: {total}")
+    log(f"  loss over 10 steps on one batch: {[round(x, 4) for x in total]}")
+    if not np.mean(total[-3:]) < np.mean(total[:3]):
+        raise AssertionError(f"the loss did not fall: {total}")
+    for i in range(3):
+        run(batches[i % 2])
+    synced = [_synced_ms(lambda i=i: run(batches[i % 2]))
+              for i in range(20)]
+    pipelined = _synced_ms(lambda: [run(batches[i % 2])
+                                    for i in range(20)]) / 20
+    prof = profile_window(lambda: [run(batches[i % 2]) for i in range(5)],
+                          top=10, spans=STEP_SPANS,
+                          check=lambda window: step_stages(window, 5))
+    launches = _read_counts(counts)
+    per_step = {name: n / steps for name, n in launches.items()}
+    log(f"  kernel launches on the pretraining path ({steps} steps): "
+        f"{launches}; per step {per_step}")
+    for name, n in PRETRAIN_LAUNCHES_PER_STEP.items():
+        if launches[name] != n * steps:
+            raise AssertionError(f"{name}: {launches[name]} launches in "
+                                 f"{steps} steps, expected {n} per step")
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach(), before[n])]
+    if still:
+        raise AssertionError(f"{len(still)} tensors did not change: "
+                             f"{still[:5]}")
+    evaluate = make_mae_eval_step(model, cfg)
+    evals = [float(evaluate(state, batches[1])["loss"]) for _ in range(2)]
+    log(f"  two evals at step {state.step}: {evals}")
+    if evals[0] != evals[1] or not np.isfinite(evals[0]):
+        raise AssertionError(f"evals at one state differ: {evals}")
+
+    median = float(np.median(synced))
+    result = dict(batch=PRETRAIN_BATCH, step_ms_median=median,
+                  step_ms_min=float(np.min(synced)),
+                  step_ms_pipelined=pipelined,
+                  images_per_s=PRETRAIN_BATCH / median * 1e3,
+                  images_per_s_pipelined=PRETRAIN_BATCH / pipelined * 1e3,
+                  losses=total, eval_losses=evals, profile_5_steps=prof,
+                  stages=step_stages(prof, 5), launches=launches,
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  step ms (each synchronised, median of 20) {median:.3f}, min "
+        f"{result['step_ms_min']:.3f}; 20 steps back to back "
+        f"{pipelined:.3f} ms per step; images/s {result['images_per_s']:.1f} "
+        f"(back to back {result['images_per_s_pipelined']:.1f}); peak memory "
+        f"{result['peak_memory_gb']:.2f} GB")
+    log(f"  profiled 5 steps: {json.dumps(prof)}")
+    log(f"  stages of one step (mean of the 5 profiled steps): "
+        f"{json.dumps(result['stages'])}")
+    return launches, result
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: one pretrain step on the card against one on the CPU
+# ---------------------------------------------------------------------------
+
+def check_pretrain_step_against_cpu(rng: np.random.Generator) -> dict:
+    """The MAE-pretrain step at full width, B=8, uint8 patches and the same
+    weights and masks: the card in bf16 with the kernels, the CPU in fp32
+    with the plain versions. Loss within 2e-2 relative; every gradient with
+    cosine >= 0.99 to the CPU's."""
+    from mae_clip_torch.models import mae_vit_for
+    from mae_clip_torch.ops.masking import MaskingResult, random_masking
+    from mae_clip_torch.train import (TrainState, make_mae_pretrain_step,
+                                      make_optimizer)
+
+    b = 8
+    cfg, card = build_pretrain_model(b, "bfloat16", "cuda", seed=1)
+    cpu_cfg = cfg.replace(compute_dtype="float32")
+    cpu = mae_vit_for(cpu_cfg, device="cpu")
+    cpu.patch_embed.masked_kernel = True
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    vcfg = card.config
+    masking = random_masking(b, vcfg.num_patches, cfg.mae.mask_ratio,
+                             torch.Generator().manual_seed(3))
+    batch = {"image": torch.from_numpy(rng.integers(
+                 0, 256, (b, vcfg.num_patches, vcfg.patch_size ** 2 * 3),
+                 np.uint8)),
+             "valid": torch.ones(b, dtype=torch.bool)}
+    losses, grads = [], []
+    for model, mcfg in ((card, cfg), (cpu, cpu_cfg)):
+        opt = make_optimizer(mcfg, model)
+        step = make_mae_pretrain_step(model, opt, mcfg)
+        m = step(TrainState.create(model, opt, cfg=mcfg), batch,
+                 masking=MaskingResult(*(x.to(model.device) for x in masking)))
+        losses.append(float(m["loss"]))
+        grads.append({n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()})
+    log(f"  loss card bf16 {losses[0]} vs CPU fp32 {losses[1]}")
+    if abs(losses[0] - losses[1]) > 2e-2 * abs(losses[1]):
+        raise AssertionError(f"loss: card {losses[0]} vs CPU {losses[1]}")
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        g.flatten(), grads[1][n].flatten(), dim=0))
+        for n, g in grads[0].items()}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+    log(f"  gradient cosine card vs CPU over {len(cos)} tensors: lowest "
+        f"{[(n, round(c, 5)) for n, c in worst]}")
+    if worst[0][1] < 0.99:
+        raise AssertionError(f"gradient cosine {worst[0]} < 0.99")
+    return dict(losses=losses, min_grad_cosine=worst[0][1])
+
 
 # ---------------------------------------------------------------------------
 
@@ -1048,17 +1356,21 @@ KERNELS = {  # name: (TPU kernel it replaces, source)
                                  "mae_clip_torch/csrc/attention_bwd.cu"),
     "flash_attention_bwd": ("mae_clip_tpu/ops/attention.py:172",
                             "mae_clip_torch/csrc/attention_bwd.cu"),
+    "masked_patch_embed": ("mae_clip_tpu/ops/patch_embed.py:40",
+                           "mae_clip_torch/csrc/patch_embed.cu"),
 }
 
 
 def _counters():
     from mae_clip_torch.ops import attention as A
+    from mae_clip_torch.ops import patch_embed as PE
 
     return {"qkv_packed_attention": (A.qkv_packed_attention, "launches"),
             "flash_attention": (A.flash_attention, "launches"),
             "qkv_packed_attention_bwd": (A.qkv_packed_attention,
                                          "bwd_launches"),
-            "flash_attention_bwd": (A.flash_attention, "bwd_launches")}
+            "flash_attention_bwd": (A.flash_attention, "bwd_launches"),
+            "masked_patch_embed": (PE.masked_patch_embed, "launches")}
 
 
 def _reset_counts() -> dict:
@@ -1082,9 +1394,12 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     log("phase 1: build")
     build_kernels()
-    log("phase 2: kernels vs plain versions (forward, then backward)")
+    log("phase 2: kernels vs plain versions (forward, backward, masked "
+        "patch embedding), augmentation card vs CPU")
     errs = check_kernels()
     check_backward_kernels(errs)
+    check_patch_embed_kernel(errs)
+    check_augment_on_card()
 
     log("phase 3: flagship serving path (ViT-S/16 + DistilBERT, bf16)")
     rng = np.random.default_rng(0)
@@ -1105,22 +1420,39 @@ def main() -> int:
     launches, train = train_flagship(rng)
     log("phase 7: card vs CPU training step (B=8, full width)")
     train["against_cpu"] = check_train_step_against_cpu(rng)
+    log("phase 8: MAE-pretrain step (B=256, bf16, in-step crops, MAE-paper "
+        "decoder, masked patch-embed kernel)")
+    pre_launches, pretrain = pretrain_mae(rng)
+    log("phase 9: card vs CPU pretrain step (B=8, full width)")
+    pretrain["against_cpu"] = check_pretrain_step_against_cpu(rng)
 
-    log("phase 5: kernel times (serving shapes, then training shapes)")
+    log("phase 5: kernel times (serving, training, then pretraining shapes)")
     time_serving_kernels()
     times = time_training_kernels()
+    pre_times = time_pretrain_kernels()
     log(f"end to end: serving {json.dumps(e2e)}")
     log(f"end to end: training {json.dumps(train)}")
+    log(f"end to end: pretraining {json.dumps(pretrain)}")
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
 
-    kernels = [dict(name=name, route="cuda", source=source,
-                    replaces=replaces, launches=launches[name],
-                    max_abs_err=errs[name], ms=times[name]["ms"],
-                    plain_ms=times[name]["plain_ms"],
-                    bound_ms=times[name]["bound_ms"],
-                    bound_by=times[name]["bound_by"],
-                    library_ms=times[name]["library_ms"])
-               for name, (replaces, source) in KERNELS.items()]
+    by_path = {"serving": served, "training": launches,
+               "pretraining": pre_launches}
+    kernels = []
+    for name, (replaces, source) in KERNELS.items():
+        t = times[name] if name in times else pre_times[name]
+        entry = dict(name=name, route="cuda", source=source,
+                     replaces=replaces,
+                     launches=sum(c[name] for c in by_path.values()),
+                     launches_by_path={k: c[name] for k, c in by_path.items()},
+                     max_abs_err=errs[name], ms=t["ms"],
+                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                     bound_by=t["bound_by"], library_ms=t["library_ms"],
+                     shape=t["shape"])
+        if name in times and name in pre_times:
+            entry["pretrain_shape"] = {
+                k: pre_times[name][k] for k in ("shape", "ms", "plain_ms",
+                                                "bound_ms", "library_ms")}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-// Helpers shared by the attention kernels (attention_fwd.cu, attention_bwd.cu).
+// Helpers shared by the port's kernels (attention_fwd.cu, attention_bwd.cu,
+// patch_embed.cu).
 //
-// Both sources include this header inside the same unnamed namespace, so each
+// Each source includes this header inside the same unnamed namespace, so each
 // library keeps its own copy and exports nothing but its extern "C" entries.
 // ops/_build.py hashes this file with every source that includes it.
 

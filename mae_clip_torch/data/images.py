@@ -1,4 +1,4 @@
-"""Image normalisation (the port's copy of the serving part of
+"""Image normalisation (the port's copy of the normalisation in
 ``mae_clip_tpu/data/images.py``)."""
 
 from __future__ import annotations
@@ -20,11 +20,17 @@ def normalize_uint8(images: torch.Tensor,
     vector. Non-uint8 input is returned unchanged."""
     if images.dtype != torch.uint8:
         return images
-    x = images.to(torch.float32) / 255.0
+    out = normalize_pixels(images.to(torch.float32))
+    return out if compute_dtype is None else out.to(compute_dtype)
+
+
+def normalize_pixels(x: torch.Tensor) -> torch.Tensor:
+    """ImageNet normalisation of float pixels on the 0..255 scale (the
+    in-step crops), NHWC or pre-patchified as ``normalize_uint8``."""
+    x = x / 255.0
     mean = torch.from_numpy(IMAGENET_MEAN).to(x.device)
     std = torch.from_numpy(IMAGENET_STD).to(x.device)
     if x.dim() == 3:
         reps = x.shape[-1] // 3
         mean, std = mean.repeat(reps), std.repeat(reps)
-    out = (x - mean) / std
-    return out if compute_dtype is None else out.to(compute_dtype)
+    return (x - mean) / std

@@ -4,8 +4,10 @@
 nested dict of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``;
 the JAX package is not imported here) and returns the port's state_dict:
 image encoder, MAE decoder and ``mask_token``, both projection heads and the
-``logit_*`` scalars. Dense kernels ``(in, out)`` become torch weights
-``(out, in)``; LayerNorm ``scale`` and table ``embedding`` become ``weight``.
+``logit_*`` scalars. ``mae_state_dict_from_flax`` does the same for a
+standalone ``MAEViT`` (the MAE-pretraining model: ``patch_embed``,
+``block_i``, ``decoder_block_i``, ``mask_token``, ... at the top level).
+Dense kernels ``(in, out)`` become torch weights ``(out, in)``; LayerNorm ``scale`` and table ``embedding`` become ``weight``.
 Module names follow timm/HF as the JAX package's exporter does
 (``block_3/attn_qkv`` -> ``blocks.3.attn.qkv``, ``layer_0/ffn_lin1`` ->
 ``transformer.layer.0.ffn.lin1``).
@@ -52,21 +54,12 @@ def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, Any]):
             np.array(arr, order="C"))  # a writable copy, 0-d kept 0-d
 
 
-def state_dict_from_flax(params: Mapping[str, Any], cfg: Config,
-                         text_config: DistilBertConfig = DistilBertConfig(),
-                         vit_config=None) -> Dict[str, torch.Tensor]:
-    """Convert a flax ``CLIPModel`` param tree (``variables`` or
-    ``variables["params"]``) for the port's ``CLIPModel(cfg, text_config,
-    vit_config)``. Raises if a key or a shape differs from that model's."""
-    from mae_clip_torch.models.clip import CLIPModel
-
+def _converted(params: Mapping[str, Any],
+               want: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     if "params" in params:
         params = params["params"]
     sd: Dict[str, torch.Tensor] = {}
     _flatten(params, "", sd)
-    with torch.device("meta"):
-        want = CLIPModel(cfg, text_config, vit_config,
-                         device="meta").state_dict()
     missing, extra = sorted(set(want) - set(sd)), sorted(set(sd) - set(want))
     if missing or extra:
         raise KeyError(f"param trees differ: missing {missing[:8]}, "
@@ -76,3 +69,29 @@ def state_dict_from_flax(params: Mapping[str, Any], cfg: Config,
             raise ValueError(f"{k}: shape {tuple(v.shape)} != "
                              f"{tuple(want[k].shape)}")
     return sd
+
+
+def state_dict_from_flax(params: Mapping[str, Any], cfg: Config,
+                         text_config: DistilBertConfig = DistilBertConfig(),
+                         vit_config=None) -> Dict[str, torch.Tensor]:
+    """Convert a flax ``CLIPModel`` param tree (``variables`` or
+    ``variables["params"]``) for the port's ``CLIPModel(cfg, text_config,
+    vit_config)``. Raises if a key or a shape differs from that model's."""
+    from mae_clip_torch.models.clip import CLIPModel
+
+    with torch.device("meta"):
+        want = CLIPModel(cfg, text_config, vit_config,
+                         device="meta").state_dict()
+    return _converted(params, want)
+
+
+def mae_state_dict_from_flax(params: Mapping[str, Any], cfg: Config,
+                             vit_config=None) -> Dict[str, torch.Tensor]:
+    """Convert a flax standalone ``MAEViT`` param tree (``mae_vit_for(cfg,
+    vit_config)`` in the JAX package) for the port's ``mae_vit_for(cfg,
+    vit_config)``. Raises if a key or a shape differs from that model's."""
+    from mae_clip_torch.models.clip import mae_vit_for
+
+    with torch.device("meta"):
+        want = mae_vit_for(cfg, vit_config, device="meta").state_dict()
+    return _converted(params, want)

@@ -27,7 +27,7 @@ from torch import nn
 from mae_clip_torch.config import Config
 from mae_clip_torch.device import resolve_device
 from mae_clip_torch.models.distilbert import DistilBertConfig, TextEncoder
-from mae_clip_torch.models.layers import dtype_of
+from mae_clip_torch.models.layers import dtype_of, init_weights
 from mae_clip_torch.models.mae import MAEDecoderConfig, MAEViT
 from mae_clip_torch.models.projection import ProjectionHead
 from mae_clip_torch.models.vit import (ViTConfig, ViTEncoder,
@@ -36,19 +36,24 @@ from mae_clip_torch.ops import losses as losses_lib
 from mae_clip_torch.ops.masking import MaskingResult
 
 
-def mae_vit_for(cfg: Config, vit_config: Optional[ViTConfig] = None
-                ) -> MAEViT:
-    """MAEViT with the geometry ``CLIPModel`` embeds when MAE is enabled."""
+def mae_vit_for(cfg: Config, vit_config: Optional[ViTConfig] = None,
+                device: str = "cuda") -> MAEViT:
+    """Standalone MAEViT on ``device`` with the geometry and parameter
+    names ``CLIPModel`` embeds when MAE is enabled, so weights from MAE
+    pretraining load into a CLIP image tower (``interop.transfer``)."""
     if not cfg.mae.enabled:
         raise ValueError("mae_vit_for requires cfg.mae.enabled")
+    if dtype_of(cfg.param_dtype) != torch.float32:
+        raise ValueError("the port keeps fp32 parameters")
     dec = MAEDecoderConfig(dim=cfg.mae.decoder_dim,
                            depth=cfg.mae.decoder_depth,
                            n_heads=cfg.mae.decoder_heads,
                            gelu=cfg.mae.decoder_gelu)
-    return MAEViT(_resolved_vit_config(cfg, vit_config), decoder=dec,
-                  mask_ratio=cfg.mae.mask_ratio,
-                  decoder_style=cfg.mae.decoder_style,
-                  dtype=dtype_of(cfg.compute_dtype))
+    model = MAEViT(_resolved_vit_config(cfg, vit_config), decoder=dec,
+                   mask_ratio=cfg.mae.mask_ratio,
+                   decoder_style=cfg.mae.decoder_style,
+                   dtype=dtype_of(cfg.compute_dtype))
+    return model.to(resolve_device(device))
 
 
 class CLIPModel(nn.Module):
@@ -77,7 +82,8 @@ class CLIPModel(nn.Module):
         if cfg.model_name == "resnet50":
             raise NotImplementedError("the ResNet50 image tower is not ported")
         vcfg = _resolved_vit_config(cfg, vit_config)
-        self.image_encoder = (mae_vit_for(cfg, vcfg) if cfg.mae.enabled
+        self.image_encoder = (mae_vit_for(cfg, vcfg, device)
+                              if cfg.mae.enabled
                               else ViTEncoder(vcfg, dtype))
         self.text_encoder = TextEncoder(text_config, dtype)
         self.image_projection = ProjectionHead(vcfg.dim, cfg.projection_dim,
@@ -112,32 +118,10 @@ class CLIPModel(nn.Module):
     def device(self) -> torch.device:
         return self.text_projection.fc.weight.device
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "CLIPModel":
-        """Random init from ``generator`` (a CPU generator, so one seed gives
-        the same weights on every device), with the JAX package's schemes:
-        linear weights normal(0, 1/sqrt(fan_in)), zero biases, unit/zero
-        LayerNorms, normal(0, 0.02) tables and tokens. The logit scalars
-        keep their fixed initial values."""
-        def normal(shape, std):
-            return torch.randn(shape, generator=generator) * std
-
-        for mod in self.modules():
-            if isinstance(mod, nn.LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-            elif isinstance(mod, nn.Linear):
-                mod.weight.copy_(normal(mod.weight.shape,
-                                        mod.in_features ** -0.5))
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, nn.Embedding):
-                mod.weight.copy_(normal(mod.weight.shape, 0.02))
-            else:  # cls/mask tokens and learned positions
-                for name, p in mod.named_parameters(recurse=False):
-                    if not name.startswith("logit_"):
-                        p.copy_(normal(p.shape, 0.02))
-        return self
+        """Random init from a CPU ``generator`` (``layers.init_weights``);
+        the logit scalars keep their fixed initial values."""
+        return init_weights(self, generator)
 
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
         """Image features before projection; the full pass for MAE towers."""

@@ -75,3 +75,30 @@ class Embed(nn.Embedding):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return super().forward(ids).to(self.compute_dtype)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random init of ``model`` from ``generator`` (a CPU generator, so one
+    seed gives the same weights on every device), with the JAX package's
+    schemes: linear weights normal(0, 1/sqrt(fan_in)), zero biases,
+    unit/zero LayerNorms, normal(0, 0.02) tables and tokens. Parameters named
+    ``logit_*`` keep their fixed initial values. Returns ``model``."""
+    def normal(shape, std):
+        return torch.randn(shape, generator=generator) * std
+
+    for mod in model.modules():
+        if isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, nn.Linear):
+            mod.weight.copy_(normal(mod.weight.shape, mod.in_features ** -0.5))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.copy_(normal(mod.weight.shape, 0.02))
+        else:  # cls/mask tokens and learned positions
+            for name, p in mod.named_parameters(recurse=False):
+                if not name.startswith("logit_"):
+                    p.copy_(normal(p.shape, 0.02))
+    return model

@@ -6,15 +6,21 @@ parameters:
 
 * ``forward(images, generator, masking)``: the masked training pass. The
   visible 25 % of the patches are gathered, embedded and encoded (CLS + K
-  tokens); the CrossMAE decoder (``decoder_style='cross'``) then decodes the
-  masked positions only, each mask-token query cross-attending the encoded
-  visible tokens. The pooled CLS feeds the contrastive loss (FLIP recipe).
+  tokens). The pooled CLS feeds the contrastive loss (FLIP recipe). Then one
+  of two decoders:
+
+  - ``decoder_style='full'`` (the MAE paper's): mask tokens are scattered
+    in beside the visible tokens, and self-attention blocks run over CLS +
+    all N positions; pred and target for every patch, with the mask.
+  - ``decoder_style='cross'`` (CrossMAE): the masked positions only, each
+    mask-token query cross-attending the encoded visible tokens; pred and
+    target for the masked rows, with an all-ones mask.
 * ``encode_full(images)``: every patch, no decoder; the image tower of
   retrieval and zero-shot.
 
-The MAE-paper decoder (``decoder_style='full'``: self-attention over all
-positions after scattering mask tokens) is built but its forward raises; it
-comes with the MAE-pretraining slice.
+``use_patch_embed_kernel`` (the JAX package's ``use_pallas_patch_embed``,
+off by default as there) embeds the visible patches through
+``masked_patch_embed``, kernel #5 on the card.
 """
 
 from __future__ import annotations
@@ -25,12 +31,13 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from mae_clip_torch.models.layers import Dense, LayerNorm
+from mae_clip_torch.models.layers import Dense, LayerNorm, init_weights
 from mae_clip_torch.models.vit import (Mlp, PatchEmbed, ViTBlock, ViTConfig,
                                        patchify, sincos_pos_embed_2d)
 from mae_clip_torch.ops.attention import multi_head_attention
 from mae_clip_torch.ops.masking import (MaskingResult, gather_patches,
-                                        random_masking)
+                                        random_masking,
+                                        scatter_with_mask_tokens)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,9 +51,9 @@ class MAEDecoderConfig:
 
 class MAEOutput(NamedTuple):
     pooled: torch.Tensor          # (B, dim) CLS feature of the visible pass
-    pred_patches: torch.Tensor    # (B, N - K, P*P*C) for the cross decoder
+    pred_patches: torch.Tensor    # (B, N, P*P*C) full; (B, N - K, ...) cross
     target_patches: torch.Tensor  # the same rows of the input patches
-    mask: torch.Tensor            # (B, N - K) ones: every row is masked
+    mask: torch.Tensor            # (B, N) 1 = masked; (B, N - K) ones, cross
 
 
 class CrossAttention(nn.Module):
@@ -92,13 +99,15 @@ class CrossAttnBlock(nn.Module):
 
 
 class MAEViT(nn.Module):
-    """ViT encoder (shared with CLIP) + MAE decoder."""
+    """ViT encoder (shared with CLIP) + MAE decoder. Built on the CPU;
+    ``mae_vit_for`` places it."""
 
     def __init__(self, config: ViTConfig,
                  decoder: MAEDecoderConfig = MAEDecoderConfig(),
                  mask_ratio: float = 0.75, channels: int = 3,
                  decoder_style: str = "full",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 use_patch_embed_kernel: bool = False):
         super().__init__()
         if decoder_style not in ("full", "cross"):
             raise ValueError(f"unknown decoder_style {decoder_style!r}")
@@ -106,7 +115,8 @@ class MAEViT(nn.Module):
         self.config, self.decoder, self.mask_ratio = c, d, mask_ratio
         self.decoder_style = decoder_style
 
-        self.patch_embed = PatchEmbed(c, channels, dtype)
+        self.patch_embed = PatchEmbed(c, channels, dtype,
+                                      masked_kernel=use_patch_embed_kernel)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, c.dim))
         self.blocks = nn.ModuleList(ViTBlock(c, dtype) for _ in range(c.depth))
         self.norm = LayerNorm(c.dim, 1e-6, dtype)
@@ -128,6 +138,14 @@ class MAEViT(nn.Module):
             sincos_pos_embed_2d(d.dim, c.grid_size, cls_token=True))[None],
             persistent=False)
 
+    @property
+    def device(self) -> torch.device:
+        return self.decoder_pred.weight.device
+
+    def init_weights(self, generator: torch.Generator) -> "MAEViT":
+        """Random init from a CPU ``generator`` (``layers.init_weights``)."""
+        return init_weights(self, generator)
+
     def _encode(self, x: torch.Tensor) -> torch.Tensor:
         """CLS (+ its position) prepended to embedded tokens, the blocks,
         the final norm."""
@@ -148,11 +166,7 @@ class MAEViT(nn.Module):
         """The masked pass. ``masking`` gives the mask indices (the tests
         feed the JAX package's); without it they are drawn from
         ``generator``."""
-        if self.decoder_style != "cross":
-            raise NotImplementedError(
-                "the 'full' MAE decoder's forward comes with the "
-                "MAE-pretraining slice; use decoder_style='cross'")
-        c, d = self.config, self.decoder
+        c = self.config
         target = images if images.dim() == 3 else patchify(images,
                                                            c.patch_size)
         b = target.shape[0]
@@ -162,11 +176,22 @@ class MAEViT(nn.Module):
         x = self.patch_embed(target, ids=masking.ids_keep)
         x = x + self.enc_pe[0, 1:][masking.ids_keep].to(x.dtype)
         encoded = self._encode(x)
+        y = self.decoder_embed(encoded)
+        pe = self.dec_pe
+
+        if self.decoder_style == "full":
+            # MAE-paper decoder: mask tokens scattered back to patch order,
+            # CLS re-attached, self-attention over all positions.
+            y = torch.cat([y[:, :1], scatter_with_mask_tokens(
+                y[:, 1:], self.mask_token, masking.ids_restore)], dim=1)
+            y = y + pe.to(y.dtype)
+            for block in self.decoder_blocks:
+                y = block(y)
+            pred = self.decoder_pred(self.decoder_norm(y))[:, 1:]
+            return MAEOutput(encoded[:, 0], pred, target, masking.mask)
 
         # CrossMAE decoder: mask-token queries at the masked positions only,
         # keys/values the decoder-embedded visible tokens (+ CLS).
-        y = self.decoder_embed(encoded)
-        pe = self.dec_pe
         kv = y + torch.cat([pe[:, :1].expand(b, -1, -1),
                             pe[0, 1:][masking.ids_keep]], dim=1).to(y.dtype)
         q = (self.mask_token + pe[0, 1:][masking.ids_masked]).to(y.dtype)

@@ -24,6 +24,7 @@ from mae_clip_torch.config import Config
 from mae_clip_torch.models.layers import Dense, LayerNorm, gelu
 from mae_clip_torch.ops.attention import fused_qkv_attention
 from mae_clip_torch.ops.masking import gather_patches
+from mae_clip_torch.ops.patch_embed import masked_patch_embed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,14 +102,19 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
 class PatchEmbed(nn.Module):
     """Patchify + linear projection (== a stride-P conv), as one matmul.
 
-    With ``ids`` (B, K) only those patch rows are embedded: the rows are
-    gathered, then projected (the MAE visible set; ``vit.py``'s XLA path).
+    With ``ids`` (B, K) only those patch rows are embedded (the MAE visible
+    set): by default the rows are gathered, then projected (``vit.py``'s
+    default XLA route); with ``masked_kernel`` the gather and the projection
+    are one ``masked_patch_embed`` call, kernel #5 on the card (the JAX
+    package's ``use_pallas`` route).
     """
 
     def __init__(self, config: ViTConfig, channels: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 masked_kernel: bool = False):
         super().__init__()
         self.config = config
+        self.masked_kernel = masked_kernel
         p = config.patch_size
         self.proj = Dense(p * p * channels, config.dim, dtype)
 
@@ -116,9 +122,13 @@ class PatchEmbed(nn.Module):
                 ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         patches = (images if images.dim() == 3
                    else patchify(images, self.config.patch_size))
-        if ids is not None:
-            patches = gather_patches(patches, ids)
-        return self.proj(patches)
+        if ids is None:
+            return self.proj(patches)
+        if self.masked_kernel:
+            dt, proj = self.proj.compute_dtype, self.proj
+            return masked_patch_embed(patches.to(dt), ids, proj.weight.to(dt),
+                                      proj.bias.to(dt))
+        return self.proj(gather_patches(patches, ids))
 
 
 class Attention(nn.Module):

@@ -28,7 +28,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("attention_fwd.cu", "attention_bwd.cu")
+SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "patch_embed.cu")
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -134,4 +134,17 @@ def load_attention_bwd() -> ctypes.CDLL:
     lib.qkv_packed_attention_bwd.restype = i32
     lib.attention_bwd_error_string.argtypes = [i32]
     lib.attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_patch_embed() -> ctypes.CDLL:
+    """The masked patch-embed library, with its C signature declared."""
+    lib = ctypes.CDLL(str(build("patch_embed.cu")))
+    vp, i32 = _VP, _I32
+    lib.masked_patch_embed_fwd.argtypes = [
+        vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
+    lib.masked_patch_embed_fwd.restype = i32
+    lib.patch_embed_error_string.argtypes = [i32]
+    lib.patch_embed_error_string.restype = ctypes.c_char_p
     return lib

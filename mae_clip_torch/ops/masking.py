@@ -4,6 +4,8 @@ The argsort-of-uniform-noise trick of the MAE paper: per sample, argsort N
 noise values and keep the first ``int(N * (1 - mask_ratio))`` indices, so the
 visible count is fixed. ``gather_patches`` is ``torch.take_along_dim``, which
 is exact; the JAX package's one-hot matmul gather exists only for the TPU.
+``scatter_with_mask_tokens`` puts the visible tokens and mask tokens back in
+patch order for the MAE-paper (``'full'``) decoder.
 """
 
 from __future__ import annotations
@@ -45,3 +47,15 @@ def random_masking(batch: int, num_patches: int, mask_ratio: float,
 def gather_patches(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Gather tokens along axis 1: (B, N, D), (B, K) -> (B, K, D)."""
     return torch.take_along_dim(x, ids[:, :, None], dim=1)
+
+
+def scatter_with_mask_tokens(x_visible: torch.Tensor, mask_token: torch.Tensor,
+                             ids_restore: torch.Tensor) -> torch.Tensor:
+    """Append mask tokens to the visible tokens and un-shuffle to patch
+    order: (B, K, D) visible (no CLS), (1, 1, D) token, (B, N) inverse
+    permutation -> (B, N, D)."""
+    b, k, d = x_visible.shape
+    n = ids_restore.shape[1]
+    mask_tokens = mask_token.expand(b, n - k, d).to(x_visible.dtype)
+    x_full = torch.cat([x_visible, mask_tokens], dim=1)
+    return torch.take_along_dim(x_full, ids_restore[:, :, None], dim=1)

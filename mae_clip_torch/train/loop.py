@@ -1,7 +1,7 @@
 """The train and eval steps (``mae_clip_tpu/train/loop.py``, single step).
 
 ``make_train_step(model, optimizer, cfg)`` returns ``step(state, batch,
-masking=None) -> metrics``: uint8 images are normalised in the step, the
+masking=None) -> metrics``: uint8 images are prepared in the step, the
 model runs in train mode (the MAE masks drawn from ``state.generator``
 unless ``masking`` is given), the loss is the soft-target InfoNCE plus
 ``cfg.mae.loss_weight`` times the MAE loss, then one backward pass and one
@@ -10,11 +10,23 @@ the step waits for the card. The forward and the backward run under the
 profiler spans ``train_step.forward`` and ``train_step.backward``; the
 update under the optimizer's own (``Optimizer.step#AdamW.step``).
 
+``make_mae_pretrain_step(model, optimizer, cfg)`` is the image-only MAE
+objective on a standalone ``MAEViT`` (He et al., arXiv:2111.06377): the
+norm-pix reconstruction loss over the masked patches, weighted by the
+``valid`` rows, with the same signature and spans. ``make_eval_step`` and
+``make_mae_eval_step`` run in eval mode without gradients; their masks come
+from ``state.eval_generator()``, so an eval depends on the state alone.
+
+Image preparation (``_prep_images``): uint8 NHWC sources at another size
+than ``cfg.size`` (``mae.aug_source_size``) get a RandomResizedCrop + flip
+per train step, drawn from ``state.generator``, or a full-frame resize on
+eval (``ops/augment.py``); uint8 at the model's geometry is only
+normalised; anything else passes through.
+
 The contrastive loss is the local one, as the JAX step computes it without a
 mesh. Not ported, and raising: gradient accumulation (GradCache), SigLIP,
 the hard-label and learnable-temperature losses, the global and chunked
-forms, in-step augmentation of uint8 sources at another geometry, EMA. The
-Trainer, checkpoints and the MAE-pretrain step are later slices.
+forms, EMA. The Trainer and checkpoints are later slices.
 """
 
 from __future__ import annotations
@@ -26,8 +38,9 @@ import torch
 from torch.profiler import record_function
 
 from mae_clip_torch.config import Config
-from mae_clip_torch.data.images import normalize_uint8
+from mae_clip_torch.data.images import normalize_pixels, normalize_uint8
 from mae_clip_torch.data.tokenizer import pad_token_batch
+from mae_clip_torch.ops import augment
 from mae_clip_torch.ops import losses as losses_lib
 from mae_clip_torch.ops.masking import MaskingResult
 from mae_clip_torch.train.state import TrainState
@@ -39,25 +52,53 @@ def _as_tensors(batch, device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def _prep_images(images: torch.Tensor, cfg: Config) -> torch.Tensor:
-    """uint8 NHWC at the model's size or uint8 patches: ImageNet
-    normalisation in the step (4x less host->device traffic than fp32).
-    Anything that is not uint8 passes through."""
+def _prep_images(images: torch.Tensor, cfg: Config, train: bool = False,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+    """uint8 NHWC sources at another size than ``cfg.size``: a
+    RandomResizedCrop + flip from ``generator`` (train) or a full-frame
+    resize (eval) to ``cfg.size``, then ImageNet normalisation. uint8 NHWC
+    at the model's size or uint8 patches: normalisation only (4x less
+    host->device traffic than fp32). Anything that is not uint8 passes
+    through."""
     if images.dtype != torch.uint8:
         return images
     if images.dim() == 4 and images.shape[1] != cfg.size:
-        raise NotImplementedError(
-            "uint8 images at another geometry than cfg.size need the in-step "
-            "RandomResizedCrop (ops/augment.py), which is not ported")
+        if train:
+            crops = augment.random_resized_crop_flip_batch(
+                images, generator, cfg.size)
+        else:
+            crops = augment.resize_batch(images, cfg.size)
+        return normalize_pixels(crops)
     return normalize_uint8(images)
 
 
 def _forward(model, batch: Dict[str, torch.Tensor], train: bool,
              generator: Optional[torch.Generator], cfg: Config,
              masking: Optional[MaskingResult] = None) -> Metrics:
-    batch = dict(batch, image=_prep_images(batch["image"], cfg))
+    batch = dict(batch, image=_prep_images(batch["image"], cfg, train,
+                                           generator))
     return model(batch, train=train, masking=masking, generator=generator,
                  compute_contrastive=False)
+
+
+def _mae_images_and_forward(model, batch: Dict[str, torch.Tensor],
+                            train: bool, generator: torch.Generator,
+                            cfg: Config,
+                            masking: Optional[MaskingResult]) -> torch.Tensor:
+    """The image-only MAE loss of a standalone ``MAEViT``: the crops, then
+    the masks, from ``generator``; padded rows (``valid`` false) weigh
+    nothing."""
+    if train != model.training:
+        model.train(train)
+    images = _prep_images(batch["image"], cfg, train, generator)
+    out = model(images, generator=generator, masking=masking)
+    weight = out.mask
+    if "valid" in batch:
+        weight = weight * batch["valid"][:, None].to(weight.dtype)
+    return losses_lib.mae_reconstruction_loss(
+        out.pred_patches, out.target_patches, weight,
+        norm_pix=cfg.mae.norm_pix_loss)
 
 
 def _clip_loss_fn(cfg: Config) -> Callable:
@@ -114,10 +155,53 @@ def make_eval_step(model, cfg: Config):
     def step(state: TrainState, batch,
              masking: Optional[MaskingResult] = None) -> Metrics:
         batch = _as_tensors(batch, model.device)
-        out = _forward(model, batch, False, state.generator, cfg, masking)
+        out = _forward(model, batch, False, state.eval_generator(), cfg,
+                       masking)
         return _metrics(cfg, out, clip_loss_fn(
             out["image_embeddings"], out["text_embeddings"],
             batch.get("valid")))
+
+    return step
+
+
+def make_mae_pretrain_step(model, optimizer: torch.optim.Optimizer,
+                           cfg: Config):
+    """Image-only MAE pretraining: ``step(state, batch, masking=None) ->
+    {"loss", "mae_loss"}`` on a standalone ``MAEViT`` (``mae_vit_for``, so
+    its weights later load into a CLIP image tower); updates the model in
+    place and adds one to ``state.step``."""
+
+    def step(state: TrainState, batch,
+             masking: Optional[MaskingResult] = None) -> Metrics:
+        if state.model is not model or state.optimizer is not optimizer:
+            raise ValueError("the state holds another model or optimizer")
+        with record_function("train_step.forward"):
+            batch = _as_tensors(batch, model.device)
+            loss = _mae_images_and_forward(model, batch, True,
+                                           state.generator, cfg, masking)
+        with record_function("train_step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        optimizer.step()
+        state.step += 1
+        loss = loss.detach()
+        return {"loss": loss, "mae_loss": loss}
+
+    return step
+
+
+def make_mae_eval_step(model, cfg: Config):
+    """The eval twin of ``make_mae_pretrain_step``: eval mode, no
+    gradients, the full-frame resize, masks from
+    ``state.eval_generator()``."""
+
+    @torch.no_grad()
+    def step(state: TrainState, batch,
+             masking: Optional[MaskingResult] = None) -> Metrics:
+        batch = _as_tensors(batch, model.device)
+        loss = _mae_images_and_forward(model, batch, False,
+                                       state.eval_generator(), cfg, masking)
+        return {"loss": loss, "mae_loss": loss}
 
     return step
 

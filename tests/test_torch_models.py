@@ -237,16 +237,18 @@ def test_sincos_and_patchify_match_jax():
 
 
 def test_unported_paths_raise():
-    """The MAE-paper 'full' decoder's forward and the ResNet50 tower are not
-    ported yet and raise; the 'cross' decoder runs."""
+    """The ResNet50 tower is not ported yet and raises; both MAE decoders
+    run: the MAE-paper 'full' one predicts every patch, the 'cross' one the
+    masked patches."""
     _, tcfg = _configs(dict(mae=dict(enabled=True, decoder_style="full",
                                      decoder_dim=16, decoder_depth=1,
                                      decoder_heads=2)))
     model = CLIPModel(tcfg, DistilBertConfig(**TEXT), ViTConfig(**VIT),
                       device="cpu")
     img = torch.zeros(1, 16, 16, 3)
-    with pytest.raises(NotImplementedError, match="MAE-pretraining"):
-        model.image_encoder(img)
+    full = model.image_encoder(img, torch.Generator().manual_seed(0))
+    assert full.pred_patches.shape == full.target_patches.shape == (1, 4, 192)
+    assert full.mask.shape == (1, 4) and float(full.mask.sum()) == 3.0
     cross = CLIPModel(tcfg.replace(mae=dataclasses.replace(
         tcfg.mae, decoder_style="cross")), DistilBertConfig(**TEXT),
         ViTConfig(**VIT), device="cpu")
