@@ -21,11 +21,18 @@ just after:
   ``mae_pretrain_config`` at batch 256 (uint8 sources at 256 px cropped and
   flipped in the step, the MAE-paper decoder, the masked patch-embed kernel
   opted in), checked for exact launches per step, a falling loss, moving
-  weights, evals that agree at one state, and against one step on the CPU.
+  weights, evals that agree at one state, and against one step on the CPU;
+* the fused block stacks (slice 4): the training step of slice 2 with
+  ``fused_blocks='on'`` (the encoder and the CrossMAE decoder each one
+  stack: kernels #6 and #7) and ``'fwd'`` (#6 with a per-block plain
+  backward), checked for exact launches per step, a falling loss and moving
+  weights, against one step on the CPU, and the serving tower
+  (``encode_full``) fused against per block on the card.
 
 Last, it times each kernel at the training and pretraining shapes beside
 its bound, its plain version and the PyTorch call that computes the same
-thing. Any failed
+thing (for the block stacks, which no single call computes, the port's own
+per-block path on the same weights). Any failed
 check raises, so the run exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; before it come the ``{"kernels": [...]}``
 summary and the card's name and power limit.
@@ -37,6 +44,7 @@ printing no result, when no CUDA card is present.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -90,6 +98,8 @@ def build_kernels() -> None:
     _build.load_attention()
     _build.load_attention_bwd()
     _build.load_patch_embed()
+    _build.load_block_stack_fwd()
+    _build.load_block_stack_bwd()
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +350,132 @@ def check_patch_embed_kernel(worst: dict) -> None:
     errs = [_bwd_close(f"{name} autograd d{n}", x, y, torch.bfloat16)
             for n, x, y in zip(("patches", "W", "b"), got, want)]
     log(f"  {name} bf16 {PATCH_EMBED_SHAPE} autograd: max abs err of the "
+        f"gradients {max(errs):.3e}")
+
+
+# Block stacks (B, Sq, Sk, D, H, F, L, cross) held against the plain
+# versions, each in the dtypes listed: the main paths' own shapes at full
+# batch and depth (the fused training step's ViT-S/16 encoder and CrossMAE
+# decoder, and the fused serving tower over 64 images at S=197), then cut
+# shapes for the fp32 bodies at serving's length and the decoder's, and odd
+# lengths at the smallest legal width. Tolerances, for the output, qstack,
+# dq0, dkv and all 16 weight gradients: fp32 max abs error
+# <= 1e-4 * max(1, max |plain|), bf16 <= 2e-2 * max(1, max |plain|).
+# Every block of the kernel's run is held to them on its own input (the
+# plain block on the kernel's input to that block). The whole bf16 stack is
+# held to them end to end where the plain version run on the CPU (other
+# fp32 sum orders, the same roundings) meets them against the plain version
+# on the card; over 12 bf16 blocks it need not, since rounding flips
+# compound with depth. Both errors are logged.
+STACK_CHECKS = (
+    ((256, 50, 50, 384, 3, 1536, 12, False), (torch.float32, torch.bfloat16)),
+    ((256, 147, 50, 256, 2, 1024, 4, True), (torch.bfloat16,)),
+    ((64, 197, 197, 384, 3, 1536, 12, False), (torch.bfloat16,)),
+    ((16, 197, 197, 384, 3, 1536, 2, False), (torch.float32,)),
+    ((32, 147, 50, 256, 2, 1024, 2, True), (torch.float32, torch.bfloat16)),
+    ((2, 9, 5, 128, 1, 256, 2, True), (torch.float32, torch.bfloat16)))
+STACK_FP32_TOL = 1e-4
+
+
+def _stack_inputs(gen, shape, dtype):
+    """q0, kv (q0 in self mode), stacked weights in torch's layout (0.05 *
+    normal, LN scales 1 + 0.05 * normal) and an output gradient."""
+    b, sq, sk, d, _, f, n, cross = shape
+
+    def r(*sh, scale=0.05, one=0.0):
+        return (one + torch.randn(*sh, generator=gen) * scale).to(DEVICE,
+                                                                  dtype)
+
+    w = {"ln1_g": r(n, d, one=1.0), "ln1_b": r(n, d),
+         "lnkv_g": r(n, d, one=1.0), "lnkv_b": r(n, d), "wq": r(n, d, d),
+         "bq": r(n, d), "wkv": r(n, 2 * d, d), "bkv": r(n, 2 * d),
+         "wproj": r(n, d, d), "bproj": r(n, d), "ln2_g": r(n, d, one=1.0),
+         "ln2_b": r(n, d), "wfc1": r(n, f, d), "bfc1": r(n, f),
+         "wfc2": r(n, d, f), "bfc2": r(n, d)}
+    q0 = r(b, sq, d, scale=1.0)
+    kv = r(b, sk, d, scale=1.0) if cross else q0
+    return q0, kv, w, r(b, sq, d, scale=1.0)
+
+
+def check_block_stack_kernels(worst: dict) -> None:
+    """Kernels #6 and #7 against fused_block_stack_ref / _bwd_ref on the
+    card, fp32 and bf16, TF32 off; then one bf16 pass through autograd."""
+    from mae_clip_torch.ops import block_kernel as BK
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(9)
+    worst["fused_block_stack"] = worst["fused_block_stack_bwd"] = 0.0
+
+    def tol(want, dt):
+        scale = max(1.0, float(want.abs().max()))
+        return (STACK_FP32_TOL if dt == torch.float32 else BF16_ATOL) * scale
+
+    for shape, dtypes in STACK_CHECKS:
+        h, n, cross = shape[4], shape[6], shape[7]
+        for dt in dtypes:
+            label = f"{str(dt)[6:]} {shape}"
+            q0, kv, w, dout = _stack_inputs(gen, shape, dt)
+            want_out, want_qstack = BK.fused_block_stack_ref(
+                q0, kv, w, h, "tanh", cross)
+            out, qstack = BK._launch_fwd(q0, kv, w, h, "tanh", cross)
+            # #7 and its plain version from the same saved block inputs.
+            got = BK._launch_bwd(want_qstack, kv, w, dout, h, "tanh", cross)
+            torch.cuda.synchronize()
+            want = BK.fused_block_stack_bwd_ref(want_qstack, kv, w, dout, h,
+                                                "tanh", cross)
+            errs = []
+            for l in range(n):
+                x, wl = qstack[l], {k: v[l:l + 1] for k, v in w.items()}
+                want_l = BK.fused_block_stack_ref(x, kv if cross else x, wl,
+                                                  h, "tanh", cross)[0]
+                errs.append(_close(f"fused_block_stack {label} block {l}",
+                                   qstack[l + 1] if l + 1 < n else out,
+                                   want_l, tol(want_l, dt)))
+            whole = (("out", out, want_out), ("qstack", qstack, want_qstack))
+            held, drift = True, ""
+            if dt == torch.bfloat16 and n > 2:
+                cpu_out, cpu_qstack = BK.fused_block_stack_ref(
+                    q0.cpu(), kv.cpu(), {k: v.cpu() for k, v in w.items()}, h,
+                    "tanh", cross)
+                d = [_close("plain on the CPU", a, y.cpu(), math.inf)
+                     for a, y in ((cpu_out, want_out),
+                                  (cpu_qstack, want_qstack))]
+                held = all(e <= tol(y, dt) for e, (_, _, y) in zip(d, whole))
+                drift = (f"; plain on the CPU vs on the card {max(d):.3e}, "
+                         f"end to end {'held' if held else 'not held'}")
+            whole_errs = [_close(f"fused_block_stack {label} {what}", x, y,
+                                 tol(y, dt) if held else math.inf)
+                          for what, x, y in whole]
+            worst["fused_block_stack"] = max(worst["fused_block_stack"],
+                                             *errs, *whole_errs)
+            pairs = [("dq0", got[0], want[0])]
+            if cross:
+                pairs.append(("dkv", got[1], want[1]))
+            pairs += [(k, got[2][k], want[2][k]) for k in BK.W_KEYS]
+            berrs = [_close(f"fused_block_stack_bwd {label} {k}", x, y,
+                            tol(y, dt)) for k, x, y in pairs]
+            worst["fused_block_stack_bwd"] = max(
+                worst["fused_block_stack_bwd"], *berrs)
+            log(f"  fused_block_stack {label}: max abs err forward per block "
+                f"{max(errs):.3e}, end to end {max(whole_errs):.3e}{drift}; "
+                f"backward {max(berrs):.3e} (dq0, "
+                f"{'dkv, ' if cross else ''}16 dw)")
+
+    shape = (32, 147, 50, 256, 2, 1024, 2, True)
+    q0, kv, w, dout = _stack_inputs(gen, shape, torch.bfloat16)
+    xs = [t.clone().requires_grad_() for t in (q0, kv)]
+    ws = {k: v.clone().requires_grad_() for k, v in w.items()}
+    got = torch.autograd.grad(BK.fused_block_stack(xs[0], xs[1], ws, 2),
+                              xs + list(ws.values()), dout)
+    torch.cuda.synchronize()
+    want_q, want_kv, want_w = BK.fused_block_stack_bwd_ref(
+        BK.fused_block_stack_ref(q0, kv, w, 2)[1], kv, w, dout, 2)
+    errs = [_close(f"fused_block_stack autograd {k}", x, y,
+                   tol(y, torch.bfloat16))
+            for k, x, y in zip(("dq0", "dkv") + BK.W_KEYS, got,
+                               [want_q, want_kv] + [want_w[k]
+                                                    for k in BK.W_KEYS])]
+    log(f"  fused_block_stack bf16 {shape} autograd: max abs err of the "
         f"gradients {max(errs):.3e}")
 
 
@@ -638,6 +774,173 @@ def time_pretrain_kernels() -> dict:
         repeats=7)
     log(f"  SM clock, max SM clock after: {clock_line()}")
     _log_times(out)
+    return out
+
+
+def _queued_ms(fn, iters: int = 10) -> tuple:
+    """(device ms, host ms) per call of a function that launches more
+    kernels than the launch queue holds (a block stack is hundreds), so
+    ``_device_ms``'s spin cannot queue its calls ahead: CUDA events around
+    ``iters`` calls back to back. While the host queues a call in less time
+    than the card runs one, the card never waits, and the event time is its
+    time; the host's time to queue one call on an idle card is returned
+    beside it."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host_ms
+
+
+# The fused block stacks at the flagship training step's shapes
+# (B, Sq, Sk, D, H, F, L, cross): the ViT-S/16 encoder and the CrossMAE
+# decoder.
+STACK_SHAPES = {"encoder": (256, 50, 50, 384, 3, 1536, 12, False),
+                "decoder": (256, 147, 50, 256, 2, 1024, 4, True)}
+
+
+def _stack_work(shape, elt: int) -> tuple:
+    """(bytes, FLOPs) the forward stack must move and do, and the same for
+    the backward: each input read once and each output written once; the
+    products over the real rows (no padding). The backward recomputes the
+    forward and does twice its products again (input and weight
+    gradients)."""
+    b, sq, sk, d, _, f, n, cross = shape
+    m, mk = b * sq, b * (sk if cross else sq)
+    gemm = 2 * m * d * d * 2 + 2 * mk * 2 * d * d + 4 * m * d * f
+    attn = 4 * m * mk // b * d     # q k^T and P v over all heads
+    weights = n * (4 * d * d + 2 * d * f + 11 * d + f) * elt
+    acts = m * d * elt
+    kv_bytes = mk * d * elt if cross else 0
+    fwd_bytes = acts + kv_bytes + weights + acts + n * acts
+    bwd_bytes = n * acts + kv_bytes + weights + acts + acts + kv_bytes \
+        + weights
+    return fwd_bytes, n * (gemm + attn), bwd_bytes, 3 * n * (gemm + attn)
+
+
+def _busy_ms(fn, calls: int = 3) -> float:
+    """Device ms per call of ``fn``: its kernels' device times summed over
+    a torch.profiler trace of ``calls`` calls (``profile_window``)."""
+    window = profile_window(lambda: [fn() for _ in range(calls)], top=1)
+    return window["device_busy_ms"] / calls
+
+
+def time_block_stacks() -> dict:
+    """#6 and #7 at the encoder's and the decoder's shapes (bf16), 7 timings
+    each (median and spread), beside their bound, their plain versions and
+    the port's own ``fused_blocks='off'`` per-block path on the same weights
+    (no single PyTorch call computes a block stack): its forward, and its
+    forward + backward less its forward. The 'off' path's time is its
+    device time from a trace (3 timings, median): back to back, its wall
+    time is the host's queueing of ~30 launches per block
+    (``library_wall_ms``, kept beside it)."""
+    from mae_clip_torch.models.mae import (CrossAttnBlock,
+                                           collect_cross_block_weights)
+    from mae_clip_torch.models.vit import (ViTBlock, ViTConfig,
+                                           collect_self_block_weights)
+    from mae_clip_torch.models.layers import init_weights
+    from mae_clip_torch.ops import block_kernel as BK
+
+    dt = torch.bfloat16
+    gen = torch.Generator().manual_seed(11)
+    out = {}
+    log(f"  SM clock, max SM clock before: {clock_line()}")
+    for which, shape in STACK_SHAPES.items():
+        b, sq, sk, d, h, f, n, cross = shape
+        vcfg = ViTConfig(dim=d, depth=n, n_heads=h, mlp_ratio=f / d,
+                         gelu="tanh")
+        block = CrossAttnBlock if cross else ViTBlock
+        blocks = torch.nn.ModuleList(block(vcfg, dt) for _ in range(n))
+        blocks = init_weights(blocks, gen).to(DEVICE)
+        w = (collect_cross_block_weights(blocks, dt) if cross else
+             collect_self_block_weights(blocks, d, dt))
+        w = {k: v.detach() for k, v in w.items()}
+        q0 = torch.randn(b, sq, d, generator=gen).to(DEVICE, dt)
+        kv = torch.randn(b, sk, d, generator=gen).to(DEVICE, dt) \
+            if cross else q0
+        dout = torch.randn(b, sq, d, generator=gen).to(DEVICE, dt)
+        _, qstack = BK._launch_fwd(q0, kv, w, h, "tanh", cross)
+        params = list(blocks.parameters())
+        x_leaf = q0.clone().requires_grad_()
+        kv_leaf = kv.clone().requires_grad_() if cross else None
+
+        def per_block(x, y):
+            for blk in blocks:
+                x = blk(x, y) if cross else blk(x)
+            return x
+
+        def off_fwd():
+            with torch.no_grad():
+                return per_block(q0, kv)
+
+        def off_fwd_graph():
+            return per_block(x_leaf, kv_leaf)
+
+        def off_fwd_bwd():
+            leaves = [x_leaf] + ([kv_leaf] if cross else []) + params
+            return torch.autograd.grad(off_fwd_graph(), leaves, dout)
+
+        fb, ff, bb, bf = _stack_work(shape, 2)
+        off_runs = {"fwd": [], "bwd": []}
+        for _ in range(3):
+            off_runs["fwd"].append(_busy_ms(off_fwd))
+            off_runs["bwd"].append(_busy_ms(off_fwd_bwd)
+                                   - _busy_ms(off_fwd_graph))
+        off_wall = {"fwd": _queued_ms(off_fwd)[0],
+                    "bwd": _queued_ms(off_fwd_bwd)[0]
+                    - _queued_ms(off_fwd_graph)[0]}
+        label = (f"{which}: q ({b},{sq},{d})" + (f" kv ({b},{sk},{d})"
+                                                  if cross else "")
+                 + f", {n} blocks, {h} heads of {d // h}, F={f}, bf16")
+        cases = {
+            "fused_block_stack": (
+                lambda: BK._launch_fwd(q0, kv, w, h, "tanh", cross),
+                lambda: BK.fused_block_stack_ref(q0, kv, w, h, "tanh",
+                                                 cross),
+                "fwd", _bound_ms(fb, ff, dt)),
+            "fused_block_stack_bwd": (
+                lambda: BK._launch_bwd(qstack, kv, w, dout, h, "tanh",
+                                       cross),
+                lambda: BK.fused_block_stack_bwd_ref(qstack, kv, w, dout, h,
+                                                     "tanh", cross),
+                "bwd", _bound_ms(bb, bf, dt))}
+        for name, (kernel, plain, part, (bound, by)) in cases.items():
+            runs, host = [], []
+            for _ in range(7):
+                ms, hms = _queued_ms(kernel)
+                runs.append(ms)
+                host.append(hms)
+            lib_runs = off_runs[part]
+            r = dict(shape=label, ms=float(np.median(runs)), ms_runs=runs,
+                     host_ms=float(np.median(host)),
+                     plain_ms=_queued_ms(plain, iters=3)[0],
+                     library_ms=float(np.median(lib_runs)),
+                     library_ms_runs=lib_runs,
+                     library_wall_ms=off_wall[part], bound_ms=bound,
+                     bound_by=by,
+                     library="device time of the port's fused_blocks='off' "
+                             "per-block path on the same weights" + (
+                                 " (forward + backward less forward)"
+                                 if part == "bwd" else " (forward)"))
+            out.setdefault(name, {})[which] = r
+            log(f"  {name} [{label}]: device ms per call: kernel "
+                f"{r['ms']:.4f} (7 timings {[round(x, 4) for x in runs]}; "
+                f"host queues a call in {r['host_ms']:.3f} ms), bound "
+                f"{bound:.4f} ({by}), plain {r['plain_ms']:.4f}, "
+                f"'off' path device {r['library_ms']:.4f} "
+                f"{[round(x, 4) for x in lib_runs]}, wall back to back "
+                f"{r['library_wall_ms']:.4f}")
+    log(f"  SM clock, max SM clock after: {clock_line()}")
     return out
 
 
@@ -963,7 +1266,21 @@ TRAIN_SEQ = 64       # caption length of the cached text features (bench.py)
 LAUNCHES_PER_STEP = {"qkv_packed_attention": 12,
                      "qkv_packed_attention_bwd": 12,
                      "flash_attention": 4, "flash_attention_bwd": 4,
-                     "masked_patch_embed": 0}
+                     "masked_patch_embed": 0, "fused_block_stack": 0,
+                     "fused_block_stack_bwd": 0}
+# With fused_blocks='on' the encoder and the CrossMAE decoder are one stack
+# each (#6 forward, #7 backward) and no attention kernel runs on its own;
+# with 'fwd' the backward is the per-block plain recompute (no #7).
+FUSED_LAUNCHES_PER_STEP = {
+    "on": dict(LAUNCHES_PER_STEP, qkv_packed_attention=0,
+               qkv_packed_attention_bwd=0, flash_attention=0,
+               flash_attention_bwd=0, fused_block_stack=2,
+               fused_block_stack_bwd=2),
+    "fwd": dict(LAUNCHES_PER_STEP, qkv_packed_attention=0,
+                qkv_packed_attention_bwd=0, flash_attention=0,
+                flash_attention_bwd=0, fused_block_stack=2,
+                fused_block_stack_bwd=0)}
+TRAIN_DATA_SEED = 10  # one batch set for every training path
 
 
 class Captions:
@@ -991,18 +1308,22 @@ def _synced_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def train_flagship(rng: np.random.Generator) -> tuple:
-    """``make_train_step`` on the flagship model at batch 256, bf16: text
-    features cached once by the frozen tower, uint8 patches (B, 196, 768) in
-    two batches cycled. Checks the loss falls over 10 steps on one batch,
-    the trainable weights move and the frozen ones do not, and every kernel
-    launches as often per step as the model has blocks."""
+def train_flagship(fused_blocks: str = "off",
+                   launches_per_step: dict = LAUNCHES_PER_STEP) -> tuple:
+    """``make_train_step`` on the flagship model at batch 256, bf16, with
+    ``fused_blocks`` as given: text features cached once by the frozen tower,
+    uint8 patches (B, 196, 768) in two batches cycled (the same data for
+    every ``fused_blocks``). Checks the loss falls over 10 steps on one
+    batch, the trainable weights move and the frozen ones do not, and every
+    kernel launches exactly ``launches_per_step`` times per step."""
     from mae_clip_torch.train import (TrainState, make_optimizer,
                                       make_train_step,
                                       precompute_text_features)
 
+    rng = np.random.default_rng(TRAIN_DATA_SEED)
     torch.cuda.reset_peak_memory_stats()
-    model = build_train_model(TRAIN_BATCH, "bfloat16", "cuda")
+    model = build_train_model(TRAIN_BATCH, "bfloat16", "cuda",
+                              fused_blocks=fused_blocks)
     cfg, dev = model.cfg, model.device
     vocab = model.text_config.vocab_size
     captions = Captions(
@@ -1062,7 +1383,7 @@ def train_flagship(rng: np.random.Generator) -> tuple:
     per_step = {name: n / steps for name, n in launches.items()}
     log(f"  kernel launches on the training path ({steps} steps): "
         f"{launches}; per step {per_step}")
-    for name, n in LAUNCHES_PER_STEP.items():
+    for name, n in launches_per_step.items():
         if launches[name] != n * steps:
             raise AssertionError(f"{name}: {launches[name]} launches in "
                                  f"{steps} steps, expected {n} per step")
@@ -1077,7 +1398,8 @@ def train_flagship(rng: np.random.Generator) -> tuple:
             raise AssertionError(f"frozen {n} changed")
 
     median = float(np.median(synced))
-    result = dict(batch=TRAIN_BATCH, text_cache_ms=text_ms,
+    result = dict(batch=TRAIN_BATCH, fused_blocks=fused_blocks,
+                  text_cache_ms=text_ms,
                   step_ms_median=median, step_ms_min=float(np.min(synced)),
                   step_ms_pipelined=pipelined,
                   pairs_per_s=TRAIN_BATCH / median * 1e3,
@@ -1134,18 +1456,20 @@ def step_stages(prof: dict, steps: int) -> dict:
 # Phase 7: one training step on the card against one on the CPU
 # ---------------------------------------------------------------------------
 
-def check_train_step_against_cpu(rng: np.random.Generator) -> dict:
+def check_train_step_against_cpu(rng: np.random.Generator,
+                                 fused_blocks: str = "off") -> dict:
     """The flagship step at full width, B=8, dropout 0, the same weights and
-    masks: the card in bf16 with the kernels, the CPU in fp32 with the plain
-    versions. Losses within 2e-2 relative; every trainable gradient with
-    cosine >= 0.99 to the CPU's."""
+    masks, with ``fused_blocks`` as given: the card in bf16 with the
+    kernels, the CPU in fp32 with the plain versions. Losses within 2e-2
+    relative; every trainable gradient with cosine >= 0.99 to the CPU's."""
     from mae_clip_torch.models import CLIPModel
     from mae_clip_torch.ops.masking import MaskingResult, random_masking
     from mae_clip_torch.train import (TrainState, make_optimizer,
                                       make_train_step)
 
     b = 8
-    card = build_train_model(b, "bfloat16", "cuda", seed=1, dropout=0.0)
+    card = build_train_model(b, "bfloat16", "cuda", seed=1, dropout=0.0,
+                             fused_blocks=fused_blocks)
     cpu = CLIPModel(card.cfg.replace(compute_dtype="float32"),
                     card.text_config, card.vit_config, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
@@ -1182,6 +1506,35 @@ def check_train_step_against_cpu(rng: np.random.Generator) -> dict:
     return dict(metrics=metrics, min_grad_cosine=worst[0][1])
 
 
+def check_fused_serving_tower(rng: np.random.Generator) -> float:
+    """``encode_full`` (through ``CLIPModel.encode_image`` and the image
+    projection) of 64 uint8 images on the card, bf16: the flagship model
+    with ``fused_blocks='on'`` (#6 over 12 blocks at S=197) against the same
+    weights per block ('off'). Row cosine >= 0.99."""
+    from mae_clip_torch.eval.retrieval import _image_embed_fn
+
+    fused = build_train_model(64, "bfloat16", "cuda", seed=2,
+                              fused_blocks="on")
+    plain = build_train_model(64, "bfloat16", "cuda", seed=2)
+    plain.load_state_dict(fused.state_dict())
+    size = fused.cfg.size
+    images = rng.integers(0, 256, (64, size, size, 3), np.uint8)
+    counts = _reset_counts()
+    got = _image_embed_fn(fused)(images)
+    launched = _read_counts(counts)["fused_block_stack"]
+    want = _image_embed_fn(plain)(images)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    log(f"  encode_full of 64 images, fused vs per block on the card: "
+        f"lowest row cosine {float(cos.min()):.6f}; #6 launched {launched} "
+        "time(s)")
+    if launched != 1:
+        raise AssertionError(f"encode_full launched #6 {launched} times")
+    if float(cos.min()) < 0.99:
+        raise AssertionError(f"fused encode_full cosine {float(cos.min())}"
+                             " < 0.99")
+    return float(cos.min())
+
+
 # ---------------------------------------------------------------------------
 # Phase 8: the MAE-pretrain step at batch 256
 # ---------------------------------------------------------------------------
@@ -1192,7 +1545,9 @@ PRETRAIN_BATCH = 256
 PRETRAIN_LAUNCHES_PER_STEP = {"qkv_packed_attention": 16,
                               "qkv_packed_attention_bwd": 16,
                               "masked_patch_embed": 1,
-                              "flash_attention": 0, "flash_attention_bwd": 0}
+                              "flash_attention": 0, "flash_attention_bwd": 0,
+                              "fused_block_stack": 0,
+                              "fused_block_stack_bwd": 0}
 
 
 def build_pretrain_model(batch: int, compute_dtype: str, device: str,
@@ -1358,14 +1713,21 @@ KERNELS = {  # name: (TPU kernel it replaces, source)
                             "mae_clip_torch/csrc/attention_bwd.cu"),
     "masked_patch_embed": ("mae_clip_tpu/ops/patch_embed.py:40",
                            "mae_clip_torch/csrc/patch_embed.cu"),
+    "fused_block_stack": ("mae_clip_tpu/ops/block_kernel.py:169",
+                          "mae_clip_torch/csrc/block_stack_fwd.cu"),
+    "fused_block_stack_bwd": ("mae_clip_tpu/ops/block_kernel.py:204",
+                              "mae_clip_torch/csrc/block_stack_bwd.cu"),
 }
 
 
 def _counters():
     from mae_clip_torch.ops import attention as A
+    from mae_clip_torch.ops import block_kernel as BK
     from mae_clip_torch.ops import patch_embed as PE
 
-    return {"qkv_packed_attention": (A.qkv_packed_attention, "launches"),
+    return {"fused_block_stack": (BK.fused_block_stack, "launches"),
+            "fused_block_stack_bwd": (BK.fused_block_stack, "bwd_launches"),
+            "qkv_packed_attention": (A.qkv_packed_attention, "launches"),
             "flash_attention": (A.flash_attention, "launches"),
             "qkv_packed_attention_bwd": (A.qkv_packed_attention,
                                          "bwd_launches"),
@@ -1395,10 +1757,11 @@ def main() -> int:
     log("phase 1: build")
     build_kernels()
     log("phase 2: kernels vs plain versions (forward, backward, masked "
-        "patch embedding), augmentation card vs CPU")
+        "patch embedding, block stacks), augmentation card vs CPU")
     errs = check_kernels()
     check_backward_kernels(errs)
     check_patch_embed_kernel(errs)
+    check_block_stack_kernels(errs)
     check_augment_on_card()
 
     log("phase 3: flagship serving path (ViT-S/16 + DistilBERT, bf16)")
@@ -1417,7 +1780,7 @@ def main() -> int:
     del model
 
     log("phase 6: flagship training step (B=256, bf16, cached text)")
-    launches, train = train_flagship(rng)
+    launches, train = train_flagship()
     log("phase 7: card vs CPU training step (B=8, full width)")
     train["against_cpu"] = check_train_step_against_cpu(rng)
     log("phase 8: MAE-pretrain step (B=256, bf16, in-step crops, MAE-paper "
@@ -1425,34 +1788,55 @@ def main() -> int:
     pre_launches, pretrain = pretrain_mae(rng)
     log("phase 9: card vs CPU pretrain step (B=8, full width)")
     pretrain["against_cpu"] = check_pretrain_step_against_cpu(rng)
+    log("phase 10: the flagship training step with fused_blocks='on' (#6 "
+        "and #7), then 'fwd' (#6, per-block plain backward); B=256, bf16")
+    fused_launches, fused = train_flagship("on", FUSED_LAUNCHES_PER_STEP["on"])
+    fwd_launches, fused_fwd = train_flagship("fwd",
+                                             FUSED_LAUNCHES_PER_STEP["fwd"])
+    log("phase 11: card vs CPU fused training step (B=8, full width), and "
+        "the fused serving tower against per block")
+    fused["against_cpu"] = check_train_step_against_cpu(rng, "on")
+    fused["encode_full_min_cosine"] = check_fused_serving_tower(rng)
 
-    log("phase 5: kernel times (serving, training, then pretraining shapes)")
+    log("phase 5: kernel times (serving, training, pretraining shapes, then "
+        "the block stacks)")
     time_serving_kernels()
     times = time_training_kernels()
     pre_times = time_pretrain_kernels()
+    stack_times = time_block_stacks()
     log(f"end to end: serving {json.dumps(e2e)}")
     log(f"end to end: training {json.dumps(train)}")
     log(f"end to end: pretraining {json.dumps(pretrain)}")
+    log(f"end to end: training, fused_blocks='on' {json.dumps(fused)}")
+    log(f"end to end: training, fused_blocks='fwd' {json.dumps(fused_fwd)}")
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"serving": served, "training": launches,
-               "pretraining": pre_launches}
+               "pretraining": pre_launches, "training_fused": fused_launches,
+               "training_fused_fwd": fwd_launches}
     kernels = []
     for name, (replaces, source) in KERNELS.items():
-        t = times[name] if name in times else pre_times[name]
-        entry = dict(name=name, route="cuda", source=source,
-                     replaces=replaces,
-                     launches=sum(c[name] for c in by_path.values()),
-                     launches_by_path={k: c[name] for k, c in by_path.items()},
-                     max_abs_err=errs[name], ms=t["ms"],
-                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                     bound_by=t["bound_by"], library_ms=t["library_ms"],
-                     shape=t["shape"])
+        extra = {}
+        if name in stack_times:
+            t = stack_times[name]["encoder"]
+            extra["decoder_shape"] = {
+                k: stack_times[name]["decoder"][k]
+                for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms")}
+            extra["library"] = t["library"]
+        else:
+            t = times[name] if name in times else pre_times[name]
         if name in times and name in pre_times:
-            entry["pretrain_shape"] = {
+            extra["pretrain_shape"] = {
                 k: pre_times[name][k] for k in ("shape", "ms", "plain_ms",
                                                 "bound_ms", "library_ms")}
-        kernels.append(entry)
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(c[name] for c in by_path.values()),
+            launches_by_path={k: c[name] for k, c in by_path.items()},
+            max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], shape=t["shape"], **extra))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 // Helpers shared by the port's kernels (attention_fwd.cu, attention_bwd.cu,
-// patch_embed.cu).
+// patch_embed.cu, block_stack_fwd.cu, block_stack_bwd.cu).
 //
 // Each source includes this header inside the same unnamed namespace, so each
 // library keeps its own copy and exports nothing but its extern "C" entries.
@@ -25,6 +25,16 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float rnd(float x, float) { return x; }
+__device__ __forceinline__ float rnd(float x, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+// x rounded to T and back (the identity for fp32).
+template <typename T>
+__device__ __forceinline__ float rnd(float x) {
+  return rnd(x, T());
 }
 
 // Element strides of one operand: batch, head, row (the last dim is 1).

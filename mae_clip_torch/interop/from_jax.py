@@ -10,7 +10,8 @@ standalone ``MAEViT`` (the MAE-pretraining model: ``patch_embed``,
 Dense kernels ``(in, out)`` become torch weights ``(out, in)``; LayerNorm ``scale`` and table ``embedding`` become ``weight``.
 Module names follow timm/HF as the JAX package's exporter does
 (``block_3/attn_qkv`` -> ``blocks.3.attn.qkv``, ``layer_0/ffn_lin1`` ->
-``transformer.layer.0.ffn.lin1``).
+``transformer.layer.0.ffn.lin1``). ``block_stack_weights_from_jax`` converts
+the stacked weights of the fused block stack.
 """
 
 from __future__ import annotations
@@ -95,3 +96,12 @@ def mae_state_dict_from_flax(params: Mapping[str, Any], cfg: Config,
     with torch.device("meta"):
         want = mae_vit_for(cfg, vit_config, device="meta").state_dict()
     return _converted(params, want)
+
+
+def block_stack_weights_from_jax(w: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's stacked ``fused_block_stack`` weights (numpy, each
+    ``(L, ...)``, matrices ``(L, in, out)``) as the port's: matrices
+    ``(L, out, in)``, everything else as it is, in the arrays' dtype."""
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        np.swapaxes(v, 1, 2) if np.ndim(v) == 3 else np.asarray(v)))
+        for k, v in w.items()}

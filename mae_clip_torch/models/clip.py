@@ -52,7 +52,8 @@ def mae_vit_for(cfg: Config, vit_config: Optional[ViTConfig] = None,
     model = MAEViT(_resolved_vit_config(cfg, vit_config), decoder=dec,
                    mask_ratio=cfg.mae.mask_ratio,
                    decoder_style=cfg.mae.decoder_style,
-                   dtype=dtype_of(cfg.compute_dtype))
+                   dtype=dtype_of(cfg.compute_dtype),
+                   block_impl=cfg.fused_blocks)
     return model.to(resolve_device(device))
 
 
@@ -84,7 +85,8 @@ class CLIPModel(nn.Module):
         vcfg = _resolved_vit_config(cfg, vit_config)
         self.image_encoder = (mae_vit_for(cfg, vcfg, device)
                               if cfg.mae.enabled
-                              else ViTEncoder(vcfg, dtype))
+                              else ViTEncoder(vcfg, dtype,
+                                              block_impl=cfg.fused_blocks))
         self.text_encoder = TextEncoder(text_config, dtype)
         self.image_projection = ProjectionHead(vcfg.dim, cfg.projection_dim,
                                                cfg.dropout, dtype)

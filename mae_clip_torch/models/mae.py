@@ -21,6 +21,11 @@ parameters:
 ``use_patch_embed_kernel`` (the JAX package's ``use_pallas_patch_embed``,
 off by default as there) embeds the visible patches through
 ``masked_patch_embed``, kernel #5 on the card.
+
+``block_impl`` (``Config.fused_blocks``, see ``vit.use_fused_blocks``) runs
+the encoder's blocks (in ``forward`` and ``encode_full``) and the
+``'cross'`` decoder's blocks as fused stacks; the ``'full'`` decoder keeps
+its per-block loop, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ from torch import nn
 
 from mae_clip_torch.models.layers import Dense, LayerNorm, init_weights
 from mae_clip_torch.models.vit import (Mlp, PatchEmbed, ViTBlock, ViTConfig,
-                                       patchify, sincos_pos_embed_2d)
+                                       fused_stack_fn, patchify,
+                                       run_self_blocks, sincos_pos_embed_2d,
+                                       stack_block_params, use_fused_blocks)
 from mae_clip_torch.ops.attention import multi_head_attention
 from mae_clip_torch.ops.masking import (MaskingResult, gather_patches,
                                         random_masking,
@@ -98,6 +105,27 @@ class CrossAttnBlock(nn.Module):
         return x + self.mlp_drop(self.mlp(self.norm2(x)))
 
 
+def collect_cross_block_weights(blocks, dtype: torch.dtype) -> dict:
+    """CrossAttnBlock parameters in the ``fused_block_stack`` layout, all
+    16 cast to ``dtype``."""
+    names = {"ln1": "norm1", "lnkv": "norm_kv", "ln2": "norm2"}
+    w = {}
+    for key, mod in names.items():
+        w[key + "_g"] = stack_block_params(
+            blocks, lambda b, m=mod: getattr(b, m).weight, dtype)
+        w[key + "_b"] = stack_block_params(
+            blocks, lambda b, m=mod: getattr(b, m).bias, dtype)
+    for key, get in (("q", lambda b: b.attn.q), ("kv", lambda b: b.attn.kv),
+                     ("proj", lambda b: b.attn.proj),
+                     ("fc1", lambda b: b.mlp.fc1),
+                     ("fc2", lambda b: b.mlp.fc2)):
+        w["w" + key] = stack_block_params(
+            blocks, lambda b, g=get: g(b).weight, dtype)
+        w["b" + key] = stack_block_params(
+            blocks, lambda b, g=get: g(b).bias, dtype)
+    return w
+
+
 class MAEViT(nn.Module):
     """ViT encoder (shared with CLIP) + MAE decoder. Built on the CPU;
     ``mae_vit_for`` places it."""
@@ -107,13 +135,16 @@ class MAEViT(nn.Module):
                  mask_ratio: float = 0.75, channels: int = 3,
                  decoder_style: str = "full",
                  dtype: torch.dtype = torch.float32,
-                 use_patch_embed_kernel: bool = False):
+                 use_patch_embed_kernel: bool = False,
+                 block_impl: str = "off"):
         super().__init__()
         if decoder_style not in ("full", "cross"):
             raise ValueError(f"unknown decoder_style {decoder_style!r}")
         c, d = config, decoder
         self.config, self.decoder, self.mask_ratio = c, d, mask_ratio
         self.decoder_style = decoder_style
+        use_fused_blocks(block_impl, c)  # rejects an unknown value
+        self.block_impl, self.dtype = block_impl, dtype
 
         self.patch_embed = PatchEmbed(c, channels, dtype,
                                       masked_kernel=use_patch_embed_kernel)
@@ -126,9 +157,10 @@ class MAEViT(nn.Module):
 
         self.decoder_embed = Dense(c.dim, d.dim, dtype)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, d.dim))
-        dec_cfg = ViTConfig(image_size=c.image_size, patch_size=c.patch_size,
-                            dim=d.dim, depth=d.depth, n_heads=d.n_heads,
-                            mlp_ratio=d.mlp_ratio, gelu=d.gelu)
+        dec_cfg = self.dec_cfg = ViTConfig(
+            image_size=c.image_size, patch_size=c.patch_size, dim=d.dim,
+            depth=d.depth, n_heads=d.n_heads, mlp_ratio=d.mlp_ratio,
+            gelu=d.gelu)
         block = ViTBlock if decoder_style == "full" else CrossAttnBlock
         self.decoder_blocks = nn.ModuleList(
             block(dec_cfg, dtype) for _ in range(d.depth))
@@ -151,8 +183,8 @@ class MAEViT(nn.Module):
         the final norm."""
         cls = (self.cls_token + self.enc_pe[:, :1]).expand(x.shape[0], -1, -1)
         x = torch.cat([cls.to(x.dtype), x], dim=1)
-        for block in self.blocks:
-            x = block(x)
+        x = run_self_blocks(self.blocks, x, self.config, self.block_impl,
+                            self.dtype)
         return self.norm(x)
 
     def encode_full(self, images: torch.Tensor) -> torch.Tensor:
@@ -195,8 +227,13 @@ class MAEViT(nn.Module):
         kv = y + torch.cat([pe[:, :1].expand(b, -1, -1),
                             pe[0, 1:][masking.ids_keep]], dim=1).to(y.dtype)
         q = (self.mask_token + pe[0, 1:][masking.ids_masked]).to(y.dtype)
-        for block in self.decoder_blocks:
-            q = block(q, kv)
+        if use_fused_blocks(self.block_impl, self.dec_cfg):
+            w = collect_cross_block_weights(self.decoder_blocks, self.dtype)
+            q = fused_stack_fn(self.block_impl)(
+                q, kv, w, self.dec_cfg.n_heads, self.dec_cfg.gelu, cross=True)
+        else:
+            for block in self.decoder_blocks:
+                q = block(q, kv)
         pred = self.decoder_pred(self.decoder_norm(q))
         ones = torch.ones(masking.ids_masked.shape, device=target.device)
         return MAEOutput(encoded[:, 0], pred,

@@ -9,6 +9,14 @@ packed-qkv CUDA kernel on the card.
 Parameter names follow timm's VisionTransformer (``blocks.{i}.attn.qkv``,
 ``blocks.{i}.mlp.fc1``, ...), except that ``patch_embed.proj`` is a linear
 weight ``(D, P*P*C)`` and not timm's conv weight ``(D, C, P, P)``.
+
+``block_impl`` (``Config.fused_blocks``) picks how a stack of blocks runs:
+``'off'`` block by block; ``'on'`` as one ``fused_block_stack`` (kernels #6
+and #7 on the card); ``'fwd'`` as ``fused_block_stack_fwd_plain_bwd`` (#6
+forward, a per-block plain recompute backward). The fused forms need heads
+of a multiple of 128, dropout 0 and a known GELU (``use_fused_blocks``);
+other geometries keep the per-block path. ``'auto'`` engages only on a TPU
+in the JAX package, and stays off here until measured on the card.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from torch import nn
 from mae_clip_torch.config import Config
 from mae_clip_torch.models.layers import Dense, LayerNorm, gelu
 from mae_clip_torch.ops.attention import fused_qkv_attention
+from mae_clip_torch.ops.block_kernel import (fused_block_stack,
+                                             fused_block_stack_fwd_plain_bwd)
 from mae_clip_torch.ops.masking import gather_patches
 from mae_clip_torch.ops.patch_embed import masked_patch_embed
 
@@ -173,14 +183,85 @@ class ViTBlock(nn.Module):
         return x + self.mlp_drop(self.mlp(self.norm2(x)))
 
 
+BLOCK_IMPLS = ("off", "on", "fwd", "auto")
+
+
+def use_fused_blocks(block_impl: str, cfg: ViTConfig) -> bool:
+    """Whether a block stack of geometry ``cfg`` runs fused: ``'on'`` or
+    ``'fwd'``, with heads of a multiple of 128, dropout 0 and a tanh or erf
+    GELU (the JAX package's ``_use_fused_blocks``). ``'auto'`` stays off:
+    the JAX package engages it on a TPU only."""
+    if block_impl not in BLOCK_IMPLS:
+        raise ValueError(f"unknown block_impl {block_impl!r}")
+    if block_impl in ("off", "auto"):
+        return False
+    if cfg.dim % cfg.n_heads or (cfg.dim // cfg.n_heads) % 128:
+        return False
+    return cfg.dropout == 0.0 and cfg.gelu in ("erf", "tanh")
+
+
+def stack_block_params(blocks, get, dtype: torch.dtype) -> torch.Tensor:
+    """``get(block)`` of every block, stacked on a new leading dim and cast
+    to ``dtype``; gradients flow back to each block's parameter."""
+    return torch.stack([get(b) for b in blocks]).to(dtype)
+
+
+def collect_self_block_weights(blocks, dim: int, dtype: torch.dtype) -> dict:
+    """ViTBlock parameters in the ``fused_block_stack`` layout, all 16 cast
+    to ``dtype`` as the JAX package casts them: wq is the first ``dim`` rows
+    of the fused qkv weight, wkv the k and v rows; lnkv repeats ln1."""
+    def stack(get):
+        return stack_block_params(blocks, get, dtype)
+
+    d = dim
+    w = {"ln1_g": stack(lambda b: b.norm1.weight),
+         "ln1_b": stack(lambda b: b.norm1.bias),
+         "wq": stack(lambda b: b.attn.qkv.weight[:d]),
+         "bq": stack(lambda b: b.attn.qkv.bias[:d]),
+         "wkv": stack(lambda b: b.attn.qkv.weight[d:]),
+         "bkv": stack(lambda b: b.attn.qkv.bias[d:]),
+         "wproj": stack(lambda b: b.attn.proj.weight),
+         "bproj": stack(lambda b: b.attn.proj.bias),
+         "ln2_g": stack(lambda b: b.norm2.weight),
+         "ln2_b": stack(lambda b: b.norm2.bias),
+         "wfc1": stack(lambda b: b.mlp.fc1.weight),
+         "bfc1": stack(lambda b: b.mlp.fc1.bias),
+         "wfc2": stack(lambda b: b.mlp.fc2.weight),
+         "bfc2": stack(lambda b: b.mlp.fc2.bias)}
+    w["lnkv_g"], w["lnkv_b"] = w["ln1_g"], w["ln1_b"]
+    return w
+
+
+def fused_stack_fn(block_impl: str):
+    """The stack function of a fused ``block_impl``: 'fwd' or 'on'."""
+    return (fused_block_stack_fwd_plain_bwd if block_impl == "fwd"
+            else fused_block_stack)
+
+
+def run_self_blocks(blocks, x: torch.Tensor, cfg: ViTConfig, block_impl: str,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """A stack of ViTBlocks: fused when ``use_fused_blocks`` says so, else
+    block by block."""
+    if use_fused_blocks(block_impl, cfg):
+        w = collect_self_block_weights(blocks, cfg.dim, dtype)
+        return fused_stack_fn(block_impl)(x, x, w, cfg.n_heads, cfg.gelu,
+                                          cross=False)
+    for block in blocks:
+        x = block(x)
+    return x
+
+
 class ViTEncoder(nn.Module):
     """Full-sequence ViT encoder producing a pooled feature vector."""
 
     def __init__(self, config: ViTConfig = VIT_S16,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 block_impl: str = "off"):
         super().__init__()
         c = self.config = config
         self.dtype = dtype
+        use_fused_blocks(block_impl, c)  # rejects an unknown value
+        self.block_impl = block_impl
         self.patch_embed = PatchEmbed(c, dtype=dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, c.dim))
         if c.pos_embed == "learned":
@@ -200,8 +281,8 @@ class ViTEncoder(nn.Module):
         x = torch.cat([cls, x], dim=1)
         pe = self.pos_embed if self.config.pos_embed == "learned" else self.sincos
         x = x + pe.to(x.dtype)
-        for block in self.blocks:
-            x = block(x)
+        x = run_self_blocks(self.blocks, x, self.config, self.block_impl,
+                            self.dtype)
         x = self.norm(x)
         if self.config.pool == "cls":
             return x[:, 0]

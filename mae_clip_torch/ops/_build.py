@@ -28,7 +28,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "patch_embed.cu")
+SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "patch_embed.cu",
+           "block_stack_fwd.cu", "block_stack_bwd.cu")
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -147,4 +148,38 @@ def load_patch_embed() -> ctypes.CDLL:
     lib.masked_patch_embed_fwd.restype = i32
     lib.patch_embed_error_string.argtypes = [i32]
     lib.patch_embed_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_LL = ctypes.c_longlong
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
+
+
+@functools.lru_cache(maxsize=None)
+def load_block_stack_fwd() -> ctypes.CDLL:
+    """The block-stack forward library (kernel #6), with its C signatures."""
+    lib = ctypes.CDLL(str(build("block_stack_fwd.cu")))
+    vp, i32 = _VP, _I32
+    lib.block_stack_fwd_workspace.argtypes = [i32] * 7
+    lib.block_stack_fwd_workspace.restype = _LL
+    lib.block_stack_fwd.argtypes = [vp, vp, _PTRS, vp, vp, vp] + [i32] * 10 \
+        + [vp]
+    lib.block_stack_fwd.restype = i32
+    lib.block_stack_error_string.argtypes = [i32]
+    lib.block_stack_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_block_stack_bwd() -> ctypes.CDLL:
+    """The block-stack backward library (kernel #7), with its C signatures."""
+    lib = ctypes.CDLL(str(build("block_stack_bwd.cu")))
+    vp, i32 = _VP, _I32
+    lib.block_stack_bwd_workspace.argtypes = [i32] * 8
+    lib.block_stack_bwd_workspace.restype = _LL
+    lib.block_stack_bwd.argtypes = [vp, vp, _PTRS, vp, vp, vp, _PTRS, vp] \
+        + [i32] * 10 + [vp]
+    lib.block_stack_bwd.restype = i32
+    lib.block_stack_bwd_error_string.argtypes = [i32]
+    lib.block_stack_bwd_error_string.restype = ctypes.c_char_p
     return lib

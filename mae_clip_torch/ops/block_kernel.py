@@ -1,0 +1,487 @@
+"""Fused transformer block stacks: plain PyTorch versions and the CUDA kernel
+wrappers (``mae_clip_tpu/ops/block_kernel.py``).
+
+A stack of L pre-LN blocks (LN -> q/kv projections -> softmax attention ->
+output projection + residual -> LN -> fc1 -> GELU -> fc2 + residual), in
+self-attention form (the ViT encoder: pass ``kv = q0`` with
+``cross=False``) or cross-attention form (the CrossMAE decoder: queries
+``q0`` attend ``kv``). The stacked weights ``w`` hold the 16 tensors of
+``W_KEYS``, each with a leading block dimension L, in torch's ``(out, in)``
+layout: wq (L, D, D), wkv (L, 2D, D) with the k rows first and the v rows
+after (head-major within each), wproj (L, D, D), wfc1 (L, F, D), wfc2
+(L, D, F), biases and LayerNorm parameters (L, X). (The JAX package keeps
+its kernels ``(in, out)``; ``interop.from_jax.block_stack_weights_from_jax``
+converts.) For self-attention the lnkv slots are filled with ln1 and
+ignored.
+
+* ``fused_block_stack_ref`` / ``fused_block_stack_bwd_ref``: the plain
+  versions of kernels #6 and #7, written step for step after the TPU
+  kernels: LayerNorm with fp32 statistics (eps 1e-6) and its output in the
+  compute dtype; each projection an fp32 product plus the fp32 bias, rounded
+  once; P computed in one shot in fp32 over the keys, normalised, then
+  rounded before P.V; residual adds in the compute dtype; GELU in fp32
+  (tanh with JAX's constants, or erf), then rounded. The backward is the
+  explicit math of the TPU kernel, not autograd: dq carried between blocks
+  in ``dout``'s dtype, dkv summed over the blocks and rounded to its dtype
+  after each, weight gradients summed in fp32 over the whole batch and then
+  cast to the weights' dtype, zero lnkv gradients and dkv in self mode.
+* ``fused_block_stack``: a ``torch.autograd.Function`` with kernel #6
+  forward and kernel #7 backward (``csrc/block_stack_fwd.cu``,
+  ``csrc/block_stack_bwd.cu``); ``fused_block_stack_fwd_plain_bwd``: #6
+  forward, then a per-block recompute backward through torch.autograd of
+  ``_plain_block`` from each block's saved input, as the JAX package's
+  ``fused_block_stack_fwd_xla_bwd``. On a CPU tensor both take the plain
+  versions; on a CUDA tensor they launch the kernels or raise (also for
+  heads wider than ``MAX_HEAD_DIM``: the kernels run the attention bodies
+  of ``ops/attention.py``'s kernels, which stop there). Launches are
+  counted in ``fused_block_stack.launches`` (#6, from either wrapper) and
+  ``fused_block_stack.bwd_launches`` (#7), one per stack.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from mae_clip_torch.ops.attention import (_DTYPE_CODES, MAX_HEAD_DIM,
+                                          _count, _ptr, _raise_on_error,
+                                          _stream)
+
+W_KEYS = ("ln1_g", "ln1_b", "lnkv_g", "lnkv_b", "wq", "bq", "wkv", "bkv",
+          "wproj", "bproj", "ln2_g", "ln2_b", "wfc1", "bfc1", "wfc2",
+          "bfc2")
+LN_EPS = 1e-6
+GELU_C = 0.7978845608028654        # sqrt(2/pi), jax.nn.gelu(approximate=True)
+GELU_A = 0.044715
+_GELU_CODES = {"tanh": 0, "erf": 1}
+
+Weights = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
+    """fp32-stat LayerNorm: (y in x's dtype, xhat, rstd)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    xc = xf - mu
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + LN_EPS)
+    xhat = xc * rstd
+    return (xhat * g.float() + b.float()).to(x.dtype), xhat, rstd
+
+
+def _ln_bwd(dy, xhat, rstd, g):
+    """dx = rstd * (dyg - mean(dyg) - xhat * mean(dyg * xhat)), dyg = dy*g."""
+    dyg = dy * g.float()
+    m1 = dyg.mean(-1, keepdim=True)
+    m2 = (dyg * xhat).mean(-1, keepdim=True)
+    return rstd * (dyg - m1 - xhat * m2)
+
+
+def _gelu(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "tanh":
+        return 0.5 * x * (1.0 + torch.tanh(GELU_C * (x + GELU_A * x ** 3)))
+    return 0.5 * x * (1.0 + torch.erf(x / math.sqrt(2.0)))
+
+
+def _gelu_grad(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "tanh":
+        t = torch.tanh(GELU_C * (x + GELU_A * x ** 3))
+        dinner = GELU_C * (1.0 + 3.0 * GELU_A * x * x)
+        return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * dinner
+    cdf = 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
+    return cdf + x * torch.exp(-0.5 * x * x) * (1.0 / math.sqrt(2 * math.pi))
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w.T in fp32: rows of ``a`` through a (out, in) weight."""
+    return torch.matmul(a.float(), w.float().t())
+
+
+def _mm_back(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dy @ w in fp32: the input gradient of a (out, in) weight."""
+    return torch.matmul(dy.float(), w.float())
+
+
+def _proj(a, w, b, dtype):
+    return (_mm(a, w) + b.float()).to(dtype)
+
+
+def _dweight(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """sum over rows of dy^T x in fp32: the (out, in) weight gradient."""
+    return torch.matmul(dy.reshape(-1, dy.shape[-1]).float().t(),
+                        x.reshape(-1, x.shape[-1]).float())
+
+
+def _colsum(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1]).float().sum(0)
+
+
+def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, s, d = x.shape
+    return x.reshape(b, s, n_heads, d // n_heads).transpose(1, 2).float()
+
+
+def _merge(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, dh = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * dh)
+
+
+def _attention(qp, kvp, n_heads: int):
+    """Single-shot softmax attention per sample on packed projections:
+    qp (B, Sq, D), kvp (B, Sk, 2D) with k columns then v columns. Returns
+    ctx (B, Sq, D) in qp's dtype and the fp32 probabilities (B, H, Sq, Sk)."""
+    d = qp.shape[-1]
+    scale = 1.0 / float(d // n_heads) ** 0.5
+    q = _heads(qp, n_heads)
+    k, v = _heads(kvp[..., :d], n_heads), _heads(kvp[..., d:], n_heads)
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    ctx = torch.matmul(p.to(qp.dtype).float(), v).to(qp.dtype)
+    return _merge(ctx), p
+
+
+def _attention_bwd(qp, kvp, p, dctx, n_heads: int):
+    """dqp (B, Sq, D) and dkvp (B, Sk, 2D), fp32, for the context gradient
+    ``dctx`` in the compute dtype: dV = round(P)^T dO, dP = dO V^T,
+    dS = round(P * (dP - rowsum(P * dP))), dq = dS K * scale,
+    dk = dS^T Q * scale."""
+    d = qp.shape[-1]
+    scale = 1.0 / float(d // n_heads) ** 0.5
+    q = _heads(qp, n_heads)
+    k, v = _heads(kvp[..., :d], n_heads), _heads(kvp[..., d:], n_heads)
+    do = _heads(dctx, n_heads)
+    dv = torch.matmul(p.to(qp.dtype).float().transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    delta = (p * dp).sum(-1, keepdim=True)
+    ds = (p * (dp - delta)).to(qp.dtype).float()
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    return _merge(dq), torch.cat([_merge(dk), _merge(dv)], dim=-1)
+
+
+def _block(x, kv, wl: Weights, n_heads: int, gelu: str, cross: bool):
+    """One block of the stack with the kernels' roundings; returns its output
+    and the intermediates the backward reuses."""
+    dt = x.dtype
+    h, xhat1, rstd1 = _ln(x, wl["ln1_g"], wl["ln1_b"])
+    kvh, xhatkv, rstdkv = (_ln(kv, wl["lnkv_g"], wl["lnkv_b"]) if cross
+                           else (h, None, None))
+    qp = _proj(h, wl["wq"], wl["bq"], dt)
+    kvp = _proj(kvh, wl["wkv"], wl["bkv"], dt)
+    ctx, p = _attention(qp, kvp, n_heads)
+    x1 = x + _proj(ctx, wl["wproj"], wl["bproj"], dt)
+    h2, xhat2, rstd2 = _ln(x1, wl["ln2_g"], wl["ln2_b"])
+    a1 = _proj(h2, wl["wfc1"], wl["bfc1"], dt)
+    a2 = _gelu(a1.float(), gelu).to(dt)
+    out = x1 + _proj(a2, wl["wfc2"], wl["bfc2"], dt)
+    return out, dict(h=h, xhat1=xhat1, rstd1=rstd1, kvh=kvh, xhatkv=xhatkv,
+                     rstdkv=rstdkv, qp=qp, kvp=kvp, ctx=ctx, p=p, x1=x1,
+                     h2=h2, xhat2=xhat2, rstd2=rstd2, a1=a1, a2=a2)
+
+
+def _block_weights(w: Weights, l: int) -> Weights:
+    return {k: v[l] for k, v in w.items()}
+
+
+def fused_block_stack_ref(q0: torch.Tensor, kv: torch.Tensor, w: Weights,
+                          n_heads: int, gelu: str = "tanh",
+                          cross: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel #6: (out (B, Sq, D), qstack (L, B, Sq, D)),
+    qstack[l] the input of block l."""
+    x, inputs = q0, []
+    for l in range(w["wq"].shape[0]):
+        inputs.append(x)
+        x, _ = _block(x, kv, _block_weights(w, l), n_heads, gelu, cross)
+    return x, torch.stack(inputs)
+
+
+def fused_block_stack_bwd_ref(qstack: torch.Tensor, kv: torch.Tensor,
+                              w: Weights, dout: torch.Tensor, n_heads: int,
+                              gelu: str = "tanh", cross: bool = True):
+    """Plain version of kernel #7: (dq0, dkv, dw) for the output gradient
+    ``dout``, walking the blocks in reverse from their saved inputs."""
+    n_blocks, dt = w["wq"].shape[0], qstack.dtype
+    dq, dkv, dws = dout, None, [None] * n_blocks
+    for l in reversed(range(n_blocks)):
+        wl = _block_weights(w, l)
+        _, f = _block(qstack[l], kv, wl, n_heads, gelu, cross)
+        dqo = dq.float()
+        da1 = _mm_back(dq.to(dt), wl["wfc2"]) * _gelu_grad(f["a1"].float(),
+                                                           gelu)
+        dh2 = _mm_back(da1.to(dt), wl["wfc1"])
+        dx1 = dqo + _ln_bwd(dh2, f["xhat2"], f["rstd2"], wl["ln2_g"])
+        dctx = _mm_back(dx1.to(dt), wl["wproj"]).to(dt)
+        dqp, dkvp = _attention_bwd(f["qp"], f["kvp"], f["p"], dctx, n_heads)
+        dh = _mm_back(dqp.to(dt), wl["wq"])
+        dkvh = _mm_back(dkvp.to(dt), wl["wkv"])
+        if cross:
+            dkv_l = _ln_bwd(dkvh, f["xhatkv"], f["rstdkv"], wl["lnkv_g"])
+            dkv = (dkv_l if dkv is None else dkv.float() + dkv_l).to(
+                dout.dtype)
+            lnkv = (_colsum(dkvh * f["xhatkv"]), _colsum(dkvh))
+        else:
+            dh = dh + dkvh
+            zero = torch.zeros_like(wl["lnkv_g"], dtype=torch.float32)
+            lnkv = (zero, zero)
+        dx = dx1 + _ln_bwd(dh, f["xhat1"], f["rstd1"], wl["ln1_g"])
+        grads = {
+            "ln1_g": _colsum(dh * f["xhat1"]), "ln1_b": _colsum(dh),
+            "lnkv_g": lnkv[0], "lnkv_b": lnkv[1],
+            "wq": _dweight(dqp.to(dt), f["h"]), "bq": _colsum(dqp),
+            "wkv": _dweight(dkvp.to(dt), f["kvh"]), "bkv": _colsum(dkvp),
+            "wproj": _dweight(dx1.to(dt), f["ctx"]), "bproj": _colsum(dx1),
+            "ln2_g": _colsum(dh2 * f["xhat2"]), "ln2_b": _colsum(dh2),
+            "wfc1": _dweight(da1.to(dt), f["h2"]), "bfc1": _colsum(da1),
+            "wfc2": _dweight(dq.to(dt), f["a2"]), "bfc2": _colsum(dqo)}
+        dws[l] = {k: v.to(w[k].dtype) for k, v in grads.items()}
+        dq = dx.to(dout.dtype)
+    dw = {k: torch.stack([dws[l][k] for l in range(n_blocks)])
+          for k in W_KEYS}
+    if not cross:
+        dkv = torch.zeros_like(dout if kv is None else kv)
+    return dq, dkv, dw
+
+
+def _plain_block(x, kv, wl: Weights, n_heads: int, gelu: str, cross: bool):
+    """One block in plain torch ops (the JAX package's ``_xla_block``): the
+    recompute of ``fused_block_stack_fwd_plain_bwd``'s backward. fp32 LN
+    statistics and softmax, each matmul rounded to the compute dtype before
+    its bias is added, as JAX's per-op evaluation rounds."""
+    def ln(y, g, b):
+        return _ln(y, g, b)[0]
+
+    d = x.shape[-1]
+    dh = d // n_heads
+    h = ln(x, wl["ln1_g"], wl["ln1_b"])
+    kvh = ln(kv, wl["lnkv_g"], wl["lnkv_b"]) if cross else h
+    qp = torch.matmul(h, wl["wq"].t()) + wl["bq"]
+    kvp = torch.matmul(kvh, wl["wkv"].t()) + wl["bkv"]
+    b, sq, _ = qp.shape
+    sk = kvp.shape[1]
+    q = qp.reshape(b, sq, n_heads, dh).transpose(1, 2)
+    k = kvp[..., :d].reshape(b, sk, n_heads, dh).transpose(1, 2)
+    v = kvp[..., d:].reshape(b, sk, n_heads, dh).transpose(1, 2)
+    s = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)
+    p = torch.softmax(s.float(), -1).to(q.dtype)
+    ctx = torch.matmul(p, v).transpose(1, 2).reshape(b, sq, d)
+    x = x + torch.matmul(ctx, wl["wproj"].t()) + wl["bproj"]
+    h2 = ln(x, wl["ln2_g"], wl["ln2_b"])
+    a = F.gelu(torch.matmul(h2, wl["wfc1"].t()) + wl["bfc1"],
+               approximate="tanh" if gelu == "tanh" else "none")
+    return x + torch.matmul(a, wl["wfc2"].t()) + wl["bfc2"]
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_inputs(name: str, q0, kv, w: Weights, n_heads: int, gelu: str,
+                  cross: bool) -> None:
+    if set(w) != set(W_KEYS):
+        raise KeyError(f"{name}: weights must hold {W_KEYS}, got {sorted(w)}")
+    if gelu not in _GELU_CODES:
+        raise ValueError(f"{name}: unknown gelu {gelu!r}")
+    b, sq, d = q0.shape
+    n_blocks, f = w["wq"].shape[0], w["wfc1"].shape[1]
+    if d % n_heads or sq == 0 or n_blocks == 0:
+        raise ValueError(f"{name}: bad shape {tuple(q0.shape)} for "
+                         f"{n_heads} heads and {n_blocks} blocks")
+    if cross and (kv.dim() != 3 or kv.shape[0] != b or kv.shape[2] != d
+                  or kv.shape[1] == 0):
+        raise ValueError(f"{name}: kv {tuple(kv.shape)} does not match q0 "
+                         f"{tuple(q0.shape)}")
+    shapes = {"wq": (d, d), "bq": (d,), "wkv": (2 * d, d), "bkv": (2 * d,),
+              "wproj": (d, d), "bproj": (d,), "wfc1": (f, d), "bfc1": (f,),
+              "wfc2": (d, f), "bfc2": (d,)}
+    for k in W_KEYS:
+        want = (n_blocks,) + shapes.get(k, (d,))
+        if tuple(w[k].shape) != want:
+            raise ValueError(f"{name}: {k} has shape {tuple(w[k].shape)}, "
+                             f"expected {want}")
+    if q0.device.type == "cpu":
+        return
+    tensors = [q0] + ([kv] if cross else []) + [w[k] for k in W_KEYS]
+    if any(t.device != q0.device for t in tensors) or \
+            q0.device.type != "cuda":
+        raise ValueError(f"{name}: all inputs must lie on one CUDA device")
+    if q0.dtype not in _DTYPE_CODES or any(t.dtype != q0.dtype
+                                           for t in tensors):
+        raise TypeError(f"{name}: q0, kv and the weights must share one "
+                        "dtype, float32 or bfloat16; got "
+                        f"{sorted({str(t.dtype) for t in tensors})}")
+    if d // n_heads > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: heads of {d // n_heads} on the card; the "
+                         f"attention bodies take Dh <= {MAX_HEAD_DIM}")
+
+
+def _weight_ptrs(w: Weights):
+    return (ctypes.c_void_p * len(W_KEYS))(*[_ptr(w[k]) for k in W_KEYS])
+
+
+def _launch_fwd(q0, kv, w: Weights, n_heads: int, gelu: str, cross: bool):
+    from mae_clip_torch.ops._build import load_block_stack_fwd
+
+    lib = load_block_stack_fwd()
+    q0 = q0.contiguous()
+    kv = kv.contiguous() if cross else None
+    w = {k: v.contiguous() for k, v in w.items()}
+    b, sq, d = q0.shape
+    sk = kv.shape[1] if cross else sq
+    f, n_blocks = w["wfc1"].shape[1], w["wq"].shape[0]
+    dtype = _DTYPE_CODES[q0.dtype]
+    out = torch.empty_like(q0)
+    qstack = torch.empty((n_blocks, b, sq, d), dtype=q0.dtype,
+                         device=q0.device)
+    work = torch.empty(lib.block_stack_fwd_workspace(b, sq, sk, d, f,
+                                                     int(cross), dtype),
+                       dtype=torch.uint8, device=q0.device)
+    err = lib.block_stack_fwd(
+        _ptr(q0), _ptr(kv), _weight_ptrs(w), _ptr(out), _ptr(qstack),
+        _ptr(work), b, sq, sk, d, n_heads, f, n_blocks, _GELU_CODES[gelu],
+        int(cross), dtype, _stream(q0))
+    _raise_on_error(err, lib.block_stack_error_string, "fused_block_stack")
+    _count(fused_block_stack, "launches")
+    return out, qstack
+
+
+def _launch_bwd(qstack, kv, w: Weights, dout, n_heads: int, gelu: str,
+                cross: bool):
+    from mae_clip_torch.ops._build import load_block_stack_bwd
+
+    lib = load_block_stack_bwd()
+    kv = kv.contiguous() if cross else None
+    dout = dout.to(qstack.dtype).contiguous()
+    w = {k: v.contiguous() for k, v in w.items()}
+    n_blocks, b, sq, d = qstack.shape
+    sk = kv.shape[1] if cross else sq
+    f = w["wfc1"].shape[1]
+    dtype = _DTYPE_CODES[qstack.dtype]
+    dq0 = torch.empty_like(dout)
+    dkv = torch.empty_like(kv) if cross else None
+    dw = {k: torch.empty_like(v) for k, v in w.items()}
+    work = torch.empty(lib.block_stack_bwd_workspace(b, sq, sk, d, n_heads,
+                                                     f, int(cross), dtype),
+                       dtype=torch.uint8, device=qstack.device)
+    err = lib.block_stack_bwd(
+        _ptr(qstack), _ptr(kv), _weight_ptrs(w), _ptr(dout), _ptr(dq0),
+        _ptr(dkv), _weight_ptrs(dw), _ptr(work), b, sq, sk, d, n_heads, f,
+        n_blocks, _GELU_CODES[gelu], int(cross), dtype, _stream(qstack))
+    _raise_on_error(err, lib.block_stack_bwd_error_string,
+                    "fused_block_stack backward")
+    _count(fused_block_stack, "bwd_launches")
+    if not cross:
+        dkv = torch.zeros_like(dout)
+    return dq0, dkv, dw
+
+
+def _stack_forward(q0, kv, w, n_heads, gelu, cross):
+    if q0.device.type == "cpu":
+        return fused_block_stack_ref(q0, kv, w, n_heads, gelu, cross)
+    return _launch_fwd(q0, kv, w, n_heads, gelu, cross)
+
+
+def fused_block_stack_bwd(qstack, kv, w: Weights, dout, n_heads: int,
+                          gelu: str = "tanh", cross: bool = True):
+    """(dq0, dkv, dw) of the stack: kernel #7 on a CUDA tensor, its plain
+    version on a CPU one."""
+    if qstack.device.type == "cpu":
+        return fused_block_stack_bwd_ref(qstack, kv, w, dout, n_heads, gelu,
+                                         cross)
+    return _launch_bwd(qstack, kv, w, dout, n_heads, gelu, cross)
+
+
+class _FusedBlockStack(torch.autograd.Function):
+    """Kernels #6 (forward) and #7 (backward); plain versions on the CPU.
+    Saves each block's input (qstack); the backward recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, q0, kv, n_heads, gelu, cross, *ws):
+        w = dict(zip(W_KEYS, ws))
+        out, qstack = _stack_forward(q0, kv, w, n_heads, gelu, cross)
+        ctx.save_for_backward(qstack, kv, *ws)
+        ctx.cfg = (n_heads, gelu, cross)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qstack, kv, *ws = ctx.saved_tensors
+        n_heads, gelu, cross = ctx.cfg
+        dq0, dkv, dw = fused_block_stack_bwd(
+            qstack, kv, dict(zip(W_KEYS, ws)), dout, n_heads, gelu, cross)
+        return (dq0, dkv if cross else None, None, None, None,
+                *[dw[k] for k in W_KEYS])
+
+
+class _FusedBlockStackFwdPlainBwd(torch.autograd.Function):
+    """Kernel #6 forward; the backward recomputes each block in plain torch
+    from its saved input and runs autograd through it, in reverse."""
+
+    @staticmethod
+    def forward(ctx, q0, kv, n_heads, gelu, cross, *ws):
+        w = dict(zip(W_KEYS, ws))
+        out, qstack = _stack_forward(q0, kv, w, n_heads, gelu, cross)
+        ctx.save_for_backward(qstack, kv, *ws)
+        ctx.cfg = (n_heads, gelu, cross)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qstack, kv, *ws = ctx.saved_tensors
+        n_heads, gelu, cross = ctx.cfg
+        dq, dkv, dws = dout, None, []
+        for l in reversed(range(qstack.shape[0])):
+            with torch.enable_grad():
+                x = qstack[l].detach().requires_grad_()
+                kv_l = kv.detach().requires_grad_() if cross else None
+                wl = {k: v[l].detach().requires_grad_()
+                      for k, v in zip(W_KEYS, ws)}
+                out = _plain_block(x, kv_l, wl, n_heads, gelu, cross)
+                leaves = [x] + ([kv_l] if cross else []) + list(wl.values())
+                grads = torch.autograd.grad(out, leaves, dq,
+                                            allow_unused=True)
+            dq = grads[0]
+            if cross:
+                dkv = grads[1] if dkv is None else dkv + grads[1]
+            dws.append({k: torch.zeros_like(wl[k]) if g is None else g
+                        for k, g in zip(wl, grads[-len(wl):])})
+        dws.reverse()
+        return (dq, dkv, None, None, None,
+                *[torch.stack([d[k] for d in dws]) for k in W_KEYS])
+
+
+def _apply(fn, q0, kv, w: Weights, n_heads: int, gelu: str, cross: bool):
+    _check_inputs("fused_block_stack", q0, kv, w, n_heads, gelu, cross)
+    return fn.apply(q0, kv if cross else None, n_heads, gelu, cross,
+                    *[w[k] for k in W_KEYS])
+
+
+def fused_block_stack(q0: torch.Tensor, kv: Optional[torch.Tensor],
+                      w: Weights, n_heads: int, gelu: str = "tanh",
+                      cross: bool = True) -> torch.Tensor:
+    """Run a stack of pre-LN blocks: q0 (B, Sq, D), kv (B, Sk, D) (ignored
+    with ``cross=False``, where the gradient flows through q0 alone), the
+    stacked weights ``w``; returns the last block's output (B, Sq, D)."""
+    return _apply(_FusedBlockStack, q0, kv, w, n_heads, gelu, cross)
+
+
+fused_block_stack.launches = 0
+fused_block_stack.bwd_launches = 0
+
+
+def fused_block_stack_fwd_plain_bwd(q0: torch.Tensor,
+                                    kv: Optional[torch.Tensor], w: Weights,
+                                    n_heads: int, gelu: str = "tanh",
+                                    cross: bool = True) -> torch.Tensor:
+    """``fused_block_stack`` with kernel #6's forward and a per-block plain
+    recompute backward (``fused_blocks='fwd'``)."""
+    return _apply(_FusedBlockStackFwdPlainBwd, q0, kv, w, n_heads, gelu,
+                  cross)

@@ -1,0 +1,251 @@
+"""The fused block-stack wrappers (mae_clip_torch.ops.block_kernel), their
+CUDA kernels (#6 forward, #7 backward) and the ``fused_blocks`` gate.
+
+On the CPU: the explicit backward ``fused_block_stack_bwd_ref`` against
+torch.autograd through the plain forward ``fused_block_stack_ref`` (fp32,
+atol 1e-5 / rtol 1e-4: the same math summed in another order), the gate's
+decisions, and that the wrappers take the plain versions for CPU tensors.
+On a CUDA card (tests marked ``cuda``): each kernel against its plain
+version on the same inputs, fp32 within 1e-4 * max(1, max |plain|) and bf16
+within 2e-2 * max(1, max |plain|) (the kernels sum in another order, and in
+bf16 one rounding that goes the other way travels through the later
+blocks), for the output, dq0, dkv and all 16 weight gradients, and the
+launch counters. This file imports neither JAX nor the JAX package, so the
+card-only tests run where those are not installed
+(``pytest tests/test_torch_block_kernel.py -m cuda --noconftest``).
+"""
+
+import pytest
+import torch
+
+from mae_clip_torch.models.layers import init_weights
+from mae_clip_torch.models.vit import ViTConfig, ViTEncoder, use_fused_blocks
+from mae_clip_torch.ops import block_kernel as BK
+
+# (B, Sq, Sk, D, H, F, L, cross): the smallest legal width at odd lengths
+# (Sq and Sk not multiples of 16 or 64), self and cross.
+SMALL = [(2, 9, 5, 128, 1, 256, 2, True), (2, 9, 9, 128, 1, 256, 2, False)]
+# The flagship stacks cut to two blocks: the ViT-S/16 encoder at S=50 and at
+# S=197 (serving), the CrossMAE decoder (147 queries on 50 tokens).
+CARD = SMALL + [(8, 50, 50, 384, 3, 1536, 2, False),
+                (4, 197, 197, 384, 3, 1536, 1, False),
+                (8, 147, 50, 256, 2, 1024, 2, True)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _inputs(shape, seed, device="cpu", dtype=torch.float32):
+    """q0, kv (kv = q0 in self mode) and stacked weights (torch layout),
+    weights 0.05 * normal, LN scales 1 + 0.05 * normal."""
+    b, sq, sk, d, _, f, n, cross = shape
+    gen = torch.Generator().manual_seed(seed)
+
+    def s(*sh):
+        return torch.randn(*sh, generator=gen) * 0.05
+
+    w = {"ln1_g": 1 + s(n, d), "ln1_b": s(n, d), "lnkv_g": 1 + s(n, d),
+         "lnkv_b": s(n, d), "wq": s(n, d, d), "bq": s(n, d),
+         "wkv": s(n, 2 * d, d), "bkv": s(n, 2 * d), "wproj": s(n, d, d),
+         "bproj": s(n, d), "ln2_g": 1 + s(n, d), "ln2_b": s(n, d),
+         "wfc1": s(n, f, d), "bfc1": s(n, f), "wfc2": s(n, d, f),
+         "bfc2": s(n, d)}
+    q0 = torch.randn(b, sq, d, generator=gen)
+    kv = torch.randn(b, sk, d, generator=gen) if cross else q0
+    dout = torch.randn(b, sq, d, generator=gen)
+    cast = dict(device=device, dtype=dtype)
+    return (q0.to(**cast), kv.to(**cast),
+            {k: v.to(**cast) for k, v in w.items()}, dout.to(**cast))
+
+
+@pytest.mark.parametrize("gelu", ["tanh", "erf"])
+@pytest.mark.parametrize("shape", SMALL, ids=["cross", "self"])
+def test_explicit_backward_matches_autograd(shape, gelu):
+    """fused_block_stack_bwd_ref (explicit math) against autograd through
+    fused_block_stack_ref, fp32, with a gradient in every output."""
+    q0, kv, w, dout = _inputs(shape, 0)
+    cross, h = shape[-1], shape[4]
+    leaves = [q0.clone().requires_grad_()]
+    kv_in = leaves[0]
+    if cross:
+        kv_in = kv.clone().requires_grad_()
+        leaves.append(kv_in)
+    ws = {k: v.clone().requires_grad_() for k, v in w.items()}
+    out, qstack = BK.fused_block_stack_ref(leaves[0], kv_in, ws, h, gelu,
+                                           cross)
+    want = torch.autograd.grad(out, leaves + list(ws.values()), dout,
+                               allow_unused=True)
+    dq0, dkv, dw = BK.fused_block_stack_bwd_ref(qstack.detach(), kv, w,
+                                                dout, h, gelu, cross)
+    tol = dict(atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(dq0, want[0], **tol)
+    if cross:
+        torch.testing.assert_close(dkv, want[1], **tol)
+    else:
+        assert torch.equal(dkv, torch.zeros_like(kv))
+    for k, g in zip(ws, want[len(leaves):]):
+        if g is None:  # lnkv in self mode
+            assert not cross and torch.equal(dw[k], torch.zeros_like(w[k]))
+        else:
+            torch.testing.assert_close(dw[k], g, **tol, msg=k)
+
+
+@pytest.mark.parametrize("fn", ["fused_block_stack",
+                                "fused_block_stack_fwd_plain_bwd"])
+def test_cpu_wrappers_take_the_plain_versions(fn):
+    """On CPU tensors both wrappers give the plain forward's output and
+    launch nothing; in self mode kv gets no gradient of its own."""
+    shape = SMALL[1]
+    q0, kv, w, dout = _inputs(shape, 1)
+    before = (BK.fused_block_stack.launches,
+              BK.fused_block_stack.bwd_launches)
+    x = q0.clone().requires_grad_()
+    out = getattr(BK, fn)(x, x, w, 1, "tanh", cross=False)
+    torch.testing.assert_close(
+        out, BK.fused_block_stack_ref(q0, q0, w, 1, "tanh", False)[0],
+        rtol=0, atol=0)
+    out.backward(dout)
+    assert x.grad is not None and x.grad.shape == x.shape
+    assert (BK.fused_block_stack.launches,
+            BK.fused_block_stack.bwd_launches) == before
+
+
+def test_use_fused_blocks_gate():
+    """'on'/'fwd' engage at heads of a multiple of 128, dropout 0 and a
+    known GELU; 'off' and 'auto' never do; an unknown value raises."""
+    flagship = ViTConfig(dim=384, n_heads=3, gelu="tanh")
+    assert use_fused_blocks("on", flagship)
+    assert use_fused_blocks("fwd", flagship)
+    assert not use_fused_blocks("off", flagship)
+    assert not use_fused_blocks("auto", flagship)
+    assert not use_fused_blocks("on", ViTConfig(dim=384, n_heads=6))  # Dh 64
+    assert not use_fused_blocks("on", ViTConfig(dim=384, n_heads=3,
+                                                dropout=0.1))
+    assert not use_fused_blocks("on", ViTConfig(dim=384, n_heads=3,
+                                                gelu="relu"))
+    with pytest.raises(ValueError, match="block_impl"):
+        use_fused_blocks("always", flagship)
+
+
+@pytest.mark.parametrize("block_impl", ["on", "fwd"])
+def test_vit_encoder_fused_matches_per_block(block_impl, monkeypatch):
+    """ViTEncoder (the non-MAE image tower) with a fused block_impl against
+    'off' on the same weights, fp32 on the CPU: the pooled feature (atol
+    2e-5 / rtol 1e-4) and the input and weight gradients (1e-3 / 1e-3), as
+    the JAX package's test_vit_encoder_fused_matches_xla holds its own; and
+    the blocks run as one stack."""
+    cfg = ViTConfig(image_size=32, patch_size=8, dim=128, depth=2, n_heads=1,
+                    mlp_ratio=2.0, pos_embed="sincos", gelu="tanh")
+    models = [ViTEncoder(cfg, block_impl=impl) for impl in ("off",
+                                                            block_impl)]
+    init_weights(models[0], torch.Generator().manual_seed(0))
+    models[1].load_state_dict(models[0].state_dict())
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    stacks = []
+    real = BK._stack_forward
+    monkeypatch.setattr(BK, "_stack_forward",
+                        lambda *a: stacks.append(a[5]) or real(*a))
+    outs, grads = [], []
+    for model in models:
+        xi = x.clone().requires_grad_()
+        out = model(xi)
+        (out ** 2).sum().backward()
+        outs.append(out.detach())
+        grads.append([xi.grad] + [p.grad for p in model.parameters()])
+    assert stacks == [False]
+    torch.testing.assert_close(outs[1], outs[0], atol=2e-5, rtol=1e-4)
+    for a, b in zip(grads[1], grads[0]):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+def _tol(want: torch.Tensor, dtype) -> float:
+    scale = max(1.0, float(want.abs().max()))
+    return (1e-4 if dtype == torch.float32 else 2e-2) * scale
+
+
+def _assert_close(got, want, dtype, what):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), what
+    err = float((got - want).abs().max())
+    assert err <= _tol(want, dtype), (what, err, _tol(want, dtype))
+
+
+FP32, BF16 = torch.float32, torch.bfloat16
+# Every shape in fp32 and bf16 with tanh; erf at the odd shapes in both
+# types and at the flagship shapes in bf16.
+CARD_CASES = ([(s, "tanh", dt) for s in CARD for dt in (FP32, BF16)]
+              + [(s, "erf", dt) for s in SMALL for dt in (FP32, BF16)]
+              + [(s, "erf", BF16) for s in CARD[2:]])
+CARD_IDS = [f"{name}-{gelu}-{str(dt)[6:]}" for (s, gelu, dt) in CARD_CASES
+            for name in [("odd-cross", "odd-self", "encoder", "serving",
+                          "decoder")[CARD.index(s)]]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,gelu,dtype", CARD_CASES, ids=CARD_IDS)
+def test_kernels_match_plain_on_card(cuda, shape, gelu, dtype):
+    """#6 and #7 against the plain versions on the same inputs: the output,
+    qstack, dq0, dkv and the 16 weight gradients."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q0, kv, w, dout = _inputs(shape, 2, cuda, dtype)
+    cross, h = shape[-1], shape[4]
+    out, qstack = BK._launch_fwd(q0, kv, w, h, gelu, cross)
+    want_out, want_qstack = BK.fused_block_stack_ref(q0, kv, w, h, gelu,
+                                                     cross)
+    _assert_close(out, want_out, dtype, "out")
+    _assert_close(qstack, want_qstack, dtype, "qstack")
+    got = BK._launch_bwd(want_qstack, kv, w, dout, h, gelu, cross)
+    want = BK.fused_block_stack_bwd_ref(want_qstack, kv, w, dout, h, gelu,
+                                        cross)
+    torch.cuda.synchronize()
+    _assert_close(got[0], want[0], dtype, "dq0")
+    if cross:
+        _assert_close(got[1], want[1], dtype, "dkv")
+    for k in BK.W_KEYS:
+        _assert_close(got[2][k], want[2][k], dtype, k)
+
+
+@pytest.mark.cuda
+def test_autograd_and_launch_counters_on_card(cuda):
+    """One pass through autograd (the decoder's cross stack, bf16): one #6
+    and one #7 launch, gradients as the plain backward's; 'fwd' launches
+    #6 and no #7."""
+    shape = CARD[-1]
+    q0, kv, w, dout = _inputs(shape, 3, cuda, torch.bfloat16)
+    xs = [t.clone().requires_grad_() for t in (q0, kv)]
+    ws = {k: v.clone().requires_grad_() for k, v in w.items()}
+    BK.fused_block_stack.launches = BK.fused_block_stack.bwd_launches = 0
+    out = BK.fused_block_stack(xs[0], xs[1], ws, 2, "tanh", cross=True)
+    grads = torch.autograd.grad(out, xs + list(ws.values()), dout)
+    assert (BK.fused_block_stack.launches,
+            BK.fused_block_stack.bwd_launches) == (1, 1)
+    want_q, want_kv, want_w = BK.fused_block_stack_bwd_ref(
+        BK.fused_block_stack_ref(q0, kv, w, 2, "tanh", True)[1], kv, w, dout,
+        2, "tanh", True)
+    _assert_close(grads[0], want_q, torch.bfloat16, "dq0")
+    _assert_close(grads[1], want_kv, torch.bfloat16, "dkv")
+    for k, g in zip(ws, grads[2:]):
+        _assert_close(g, want_w[k], torch.bfloat16, k)
+    out = BK.fused_block_stack_fwd_plain_bwd(xs[0], xs[1], ws, 2, "tanh",
+                                             cross=True)
+    torch.autograd.grad(out, xs + list(ws.values()), dout)
+    assert (BK.fused_block_stack.launches,
+            BK.fused_block_stack.bwd_launches) == (2, 1)
+
+
+@pytest.mark.cuda
+def test_wide_heads_raise_on_card(cuda):
+    """Heads wider than the attention bodies take raise on the card rather
+    than run another program."""
+    shape = (2, 9, 5, 256, 1, 256, 1, True)
+    q0, kv, w, _ = _inputs(shape, 4, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="Dh <= 128"):
+        BK.fused_block_stack(q0, kv, w, 1, "tanh", cross=True)
