@@ -5,8 +5,9 @@
 
 It builds the port's CUDA kernels from ``mae_clip_torch/csrc`` (one nvcc per
 source, started together) and holds each kernel, forward and backward,
-against its plain PyTorch version on the card, and the in-step augmentation
-against the CPU's. Then it drives the port's three paths through their entry
+against its plain PyTorch version on the card (the packed-qkv pair #1/#3
+also as training runs them: #1 writing the row log-sum-exp, #3 reading it
+and the output), and the in-step augmentation against the CPU's. Then it drives the port's three paths through their entry
 points, each with the kernels' launch counts set to 0 just before and read
 just after:
 
@@ -45,6 +46,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -93,7 +95,12 @@ def build_kernels() -> None:
         f"{time.perf_counter() - t0:.1f} s")
     for src in paths:
         for line in _build.ptxas_report(src).splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            entry = re.search(r"Compiling entry function '.*?\d+"
+                              r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", line)
+            if entry:
+                dim = f"<{entry.group(2)}>" if entry.group(2) else ""
+                log(f"  {src}: {entry.group(1)}{dim}")
+            elif "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {src}: {line.strip()}")
     _build.load_attention()
     _build.load_attention_bwd()
@@ -194,6 +201,34 @@ def check_kernels() -> dict:
                         for x in xs] + [kv]
         run("flash_attention", A.flash_attention, A.flash_attention_ref, make)
 
+    # #1 as the training path runs it, writing the row log-sum-exp, at the
+    # two main shapes (the CLIP/MAE encoder, the MAE-paper decoder), with a
+    # padding mask, and at head dim 64 (a ViT-B head; its own template
+    # bodies) at S <= 64 and above: out and lse against the plain (out, lse)
+    # forward.
+    for b, s, h, masked, d in ((256, 50, 3, False, 128),
+                               (256, 197, 2, False, 128),
+                               (8, 197, 2, True, 128), (16, 50, 4, True, 64),
+                               (8, 197, 4, True, 64)):
+        qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(dev)
+        kv = _padding_mask(gen, b, s, dev) if masked else None
+        for dt in (torch.float32, torch.bfloat16):
+            x = qkv.to(dt)
+            out, lse = A._launch_packed(x, A._mask_arg(kv, b, s, x.device), h,
+                                        d ** -0.5, with_lse=True)
+            torch.cuda.synchronize()
+            want, want_lse = A.qkv_packed_attention_lse_ref(x.float(), kv, h)
+            tol = FP32_TOL if dt == torch.float32 else dict(atol=BF16_ATOL)
+            err = _close(f"qkv_packed_attention lse path {str(dt)[6:]}", out,
+                         want, **tol)
+            lse_err = _close(f"qkv_packed_attention lse {str(dt)[6:]}", lse,
+                             want_lse, **FP32_TOL)
+            worst["qkv_packed_attention"] = max(
+                worst["qkv_packed_attention"], err)
+            log(f"  qkv_packed_attention with lse {str(dt)[6:]} "
+                f"({b},{s},{3 * h * d}){' masked' if masked else ''}: "
+                f"max abs err out {err:.3e}, lse {lse_err:.3e}")
+
     flash_case(16, 6, 64, 64, True, "strided")
     flash_case(16, 6, 64, 64, True, "plain")
     flash_case(256, 2, 147, 50, False, "decoder")
@@ -231,33 +266,46 @@ def check_backward_kernels(worst: dict) -> None:
         errs = [_bwd_close(f"{name} {label} {str(dt)[6:]}", x, y, dt)
                 for x, y in zip(got, want)]
         worst[name] = max(worst.get(name, 0.0), *errs)
-        log(f"  {name} {str(dt)[6:]} {label}: max abs err {max(errs):.3e}")
+        top = max(float(y.abs().max()) for y in want)
+        log(f"  {name} {str(dt)[6:]} {label}: max abs err {max(errs):.3e} "
+            f"(max |plain| {top:.3e})")
 
-    # Packed (kernel #3): the step's encoder shape, the MAE-paper decoder's
-    # (2 heads, S=197: several query and key tiles), a padding mask at S=50,
-    # and S=197 through autograd.
-    for b, s, h, masked, autograd in ((256, 50, 3, False, False),
-                                      (256, 197, 2, False, False),
-                                      (8, 50, 3, True, False),
-                                      (16, 197, 3, True, True)):
-        qkv0, g0 = randn(b, s, 3 * h * 128), randn(b, s, h * 128)
+    # Packed (kernel #3), from the forward's out and lse: the step's encoder
+    # shape, the MAE-paper decoder's (2 heads, S=197: several query and key
+    # tiles), a padding mask at S=50, S=197 through autograd, and head dim
+    # 64 with a padding mask at S <= 64 (one kernel) and above (two). Held
+    # against the plain backward that recomputes the statistics (as the TPU
+    # kernel does) and against the one that takes the kernel's out and lse.
+    for b, s, h, masked, autograd, d in ((256, 50, 3, False, False, 128),
+                                         (256, 197, 2, False, False, 128),
+                                         (8, 50, 3, True, False, 128),
+                                         (16, 197, 3, True, True, 128),
+                                         (16, 50, 4, True, False, 64),
+                                         (8, 197, 4, True, False, 64)):
+        qkv0, g0 = randn(b, s, 3 * h * d), randn(b, s, h * d)
         kv = _padding_mask(gen, b, s, dev) if masked else None
         for dt in (torch.float32, torch.bfloat16):
             qkv, g = qkv0.to(dt), g0.to(dt)
+            mask = A._mask_arg(kv, b, s, qkv.device)
+            out, lse = A._launch_packed(qkv, mask, h, d ** -0.5,
+                                        with_lse=True)
             if autograd:
                 x = qkv.clone().requires_grad_()
                 got = torch.autograd.grad(A.qkv_packed_attention(x, kv, h),
                                           x, g)
             else:
-                got = (A._launch_packed_bwd(
-                    qkv, A._mask_arg(kv, b, s, qkv.device), h, 128 ** -0.5,
-                    g),)
+                got = (A._launch_packed_bwd(qkv, mask, h, d ** -0.5, out,
+                                            lse, g),)
             torch.cuda.synchronize()
+            label = (f"({b},{s},{3 * h * d}){' masked' if masked else ''}"
+                     f"{' autograd' if autograd else ''}")
             want = (A.qkv_packed_attention_bwd_ref(qkv.float(), kv, h, None,
                                                    g.float()),)
-            check("qkv_packed_attention_bwd",
-                  f"({b},{s},{3 * h * 128}){' masked' if masked else ''}"
-                  f"{' autograd' if autograd else ''}", got, want, dt)
+            check("qkv_packed_attention_bwd", label, got, want, dt)
+            want = (A.qkv_packed_attention_bwd_lse_ref(
+                qkv.float(), kv, h, None, out.float(), lse, g.float()),)
+            check("qkv_packed_attention_bwd", label + " vs the lse plain",
+                  got, want, dt)
 
     # Flash (kernel #4): the decoder's shape with its strided head views,
     # through autograd; DistilBERT's with a mask and strided views; S=300
@@ -456,10 +504,29 @@ def check_block_stack_kernels(worst: dict) -> None:
                             tol(y, dt)) for k, x, y in pairs]
             worst["fused_block_stack_bwd"] = max(
                 worst["fused_block_stack_bwd"], *berrs)
+            i = int(np.argmax(berrs))
+            ctx_delta = ""
+            if dt == torch.bfloat16:
+                # The bf16 body takes the row sum from the forward's rounded
+                # ctx, not from P * dP: held also against a plain version
+                # that does the same, to show what that choice moves.
+                want_c = BK.fused_block_stack_bwd_ref(
+                    want_qstack, kv, w, dout, h, "tanh", cross,
+                    delta_from_ctx=True)
+                pairs_c = [("dq0", want_c[0]), ("dkv", want_c[1])][
+                    :1 + cross] + [(k, want_c[2][k]) for k in BK.W_KEYS]
+                cerrs = [_close(f"fused_block_stack_bwd {label} {k} vs the "
+                                "row sum from ctx", x, y, tol(y, dt))
+                         for (k, x, _), (_, y) in zip(pairs, pairs_c)]
+                ctx_delta = (f"; against the plain version taking the row "
+                             f"sum from ctx {max(cerrs):.3e} "
+                             f"({pairs[int(np.argmax(cerrs))][0]})")
             log(f"  fused_block_stack {label}: max abs err forward per block "
                 f"{max(errs):.3e}, end to end {max(whole_errs):.3e}{drift}; "
                 f"backward {max(berrs):.3e} (dq0, "
-                f"{'dkv, ' if cross else ''}16 dw)")
+                f"{'dkv, ' if cross else ''}16 dw; the largest in "
+                f"{pairs[i][0]}, at a limit of {tol(pairs[i][2], dt):.3e})"
+                f"{ctx_delta}")
 
     shape = (32, 147, 50, 256, 2, 1024, 2, True)
     q0, kv, w, dout = _stack_inputs(gen, shape, torch.bfloat16)
@@ -644,8 +711,13 @@ def _log_times(times: dict) -> None:
             spread = (f" (median of {len(r['ms_runs'])}: kernel "
                       f"{[round(x, 4) for x in r['ms_runs']]}, library "
                       f"{[round(x, 4) for x in r['library_ms_runs']]})")
+        design = ""
+        if "design_bound_ms" in r:
+            design = (f", bound of the bytes this design moves "
+                      f"{r['design_bound_ms']:.4f}")
         log(f"  {name} [{r['shape']}]: device ms per call: kernel "
-            f"{r['ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}), "
+            f"{r['ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']})"
+            f"{design}, "
             f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}"
             f"{spread}; wall ms per call with host dispatch: kernel "
             f"{r['call_ms']:.4f}, library {r['library_call_ms']:.4f}")
@@ -662,6 +734,51 @@ def _sdpa_fwd_bwd(q, k, v, g):
         return F.scaled_dot_product_attention(q, k, v)
 
     return (lambda: torch.autograd.grad(fwd(), (q, k, v), g), fwd)
+
+
+def _time_packed(qkv, g, h: int, repeats: int) -> dict:
+    """#1 and #3 on qkv (B, S, 3*H*128) and d_out g, bf16, no mask, as the
+    training path runs them: #1 writes the row log-sum-exp, #3 reads it and
+    the forward's output. #1's bound counts the log-sum-exp, an output the
+    backward needs. #3's bound counts only what d_qkv needs (qkv and d_out
+    read, d_qkv written): its reads of the output and the log-sum-exp are
+    this design's choice, so they go into ``design_bound_ms`` beside it.
+    #3's operations are its five products (S, dP, dV, dK, dQ)."""
+    import torch.nn.functional as F
+
+    from mae_clip_torch.ops import attention as A
+
+    b, s, _ = qkv.shape
+    d = 128
+    scale = d ** -0.5
+    q, k, v = A._unpack(qkv, h)
+    g4 = g.view(b, s, h, d).transpose(1, 2)
+    elt = qkv.element_size()
+    lse_bytes = b * h * s * 4
+    out, lse = A._launch_packed(qkv, None, h, scale, with_lse=True)
+    flops = 2 * b * h * s * s * d  # one (S x S x Dh) product
+    shape = f"qkv ({b},{s},{3 * h * d}) bf16, {h} heads, no mask"
+    bwd_bytes = (2 * qkv.numel() + g.numel()) * elt
+    design = bwd_bytes + out.numel() * elt + lse_bytes
+    times = {
+        "qkv_packed_attention": _timed(
+            shape + ", writing lse",
+            lambda: A._launch_packed(qkv, None, h, scale, with_lse=True),
+            lambda: A.qkv_packed_attention_lse_ref(qkv, None, h),
+            lambda: F.scaled_dot_product_attention(q, k, v),
+            *_bound_ms((qkv.numel() + out.numel()) * elt + lse_bytes,
+                       2 * flops, torch.bfloat16), repeats=repeats),
+        "qkv_packed_attention_bwd": _timed(
+            shape + f", d_out ({b},{s},{h * d}), reading out and lse",
+            lambda: A._launch_packed_bwd(qkv, None, h, scale, out, lse, g),
+            lambda: A.qkv_packed_attention_bwd_lse_ref(qkv, None, h, scale,
+                                                       out, lse, g),
+            _sdpa_fwd_bwd(q, k, v, g4),
+            *_bound_ms(bwd_bytes, 5 * flops, torch.bfloat16),
+            repeats=repeats)}
+    times["qkv_packed_attention_bwd"]["design_bound_ms"] = _bound_ms(
+        design, 5 * flops, torch.bfloat16)[0]
+    return times
 
 
 def time_training_kernels() -> dict:
@@ -682,22 +799,8 @@ def time_training_kernels() -> dict:
     b, s, h, d = 256, 50, 3, 128
     qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(dev, dt)
     g = torch.randn(b, s, h * d, generator=gen).to(dev, dt)
-    q, k, v = A._unpack(qkv, h)
-    g4 = g.view(b, s, h, d).transpose(1, 2)
+    out.update(_time_packed(qkv, g, h, repeats=7))
     elt, scale = qkv.element_size(), d ** -0.5
-    flops = 2 * b * h * s * s * d  # one (S x S x Dh) product
-    shape = f"qkv ({b},{s},{3 * h * d}) bf16, {h} heads, no mask"
-    out["qkv_packed_attention"] = _timed(
-        shape, lambda: A.qkv_packed_attention(qkv, None, h),
-        lambda: A.qkv_packed_attention_ref(qkv, None, h),
-        lambda: F.scaled_dot_product_attention(q, k, v),
-        *_bound_ms((qkv.numel() + g.numel()) * elt, 2 * flops, dt), repeats=7)
-    out["qkv_packed_attention_bwd"] = _timed(
-        shape + ", d_out (256,50,384)",
-        lambda: A._launch_packed_bwd(qkv, None, h, scale, g),
-        lambda: A.qkv_packed_attention_bwd_ref(qkv, None, h, scale, g),
-        _sdpa_fwd_bwd(q, k, v, g4),
-        *_bound_ms((2 * qkv.numel() + g.numel()) * elt, 5 * flops, dt), repeats=7)
 
     b, h, sq, sk = 256, 2, 147, 50
     q = torch.randn(b, sq, h, d, generator=gen).to(dev, dt).transpose(1, 2)
@@ -726,11 +829,11 @@ def time_training_kernels() -> dict:
 def time_pretrain_kernels() -> dict:
     """The MAE-pretrain step's kernels at its shapes (bf16): the masked
     patch embedding (256, 196, 768) -> (256, 49, 384), and the MAE-paper
-    decoder's packed qkv (256, 197, 768), 2 heads of 128, forward and
-    backward. Each kernel is timed 7 times (median and spread)."""
+    decoder's packed qkv (256, 197, 768), 2 heads of 128, forward (writing
+    the log-sum-exp) and backward (reading it). Each kernel is timed 7
+    times (median and spread)."""
     import torch.nn.functional as F
 
-    from mae_clip_torch.ops import attention as A
     from mae_clip_torch.ops import patch_embed as PE
 
     dt = torch.bfloat16
@@ -756,22 +859,7 @@ def time_pretrain_kernels() -> dict:
     b, s, h, d = 256, 197, 2, 128
     qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(DEVICE, dt)
     g = torch.randn(b, s, h * d, generator=gen).to(DEVICE, dt)
-    q, k_, v = A._unpack(qkv, h)
-    g4 = g.view(b, s, h, d).transpose(1, 2)
-    flops = 2 * b * h * s * s * d
-    shape = f"qkv ({b},{s},{3 * h * d}) bf16, {h} heads, no mask"
-    out["qkv_packed_attention"] = _timed(
-        shape, lambda: A.qkv_packed_attention(qkv, None, h),
-        lambda: A.qkv_packed_attention_ref(qkv, None, h),
-        lambda: F.scaled_dot_product_attention(q, k_, v),
-        *_bound_ms((qkv.numel() + g.numel()) * elt, 2 * flops, dt), repeats=7)
-    out["qkv_packed_attention_bwd"] = _timed(
-        shape + f", d_out ({b},{s},{h * d})",
-        lambda: A._launch_packed_bwd(qkv, None, h, d ** -0.5, g),
-        lambda: A.qkv_packed_attention_bwd_ref(qkv, None, h, d ** -0.5, g),
-        _sdpa_fwd_bwd(q, k_, v, g4),
-        *_bound_ms((2 * qkv.numel() + g.numel()) * elt, 5 * flops, dt),
-        repeats=7)
+    out.update(_time_packed(qkv, g, h, repeats=7))
     log(f"  SM clock, max SM clock after: {clock_line()}")
     _log_times(out)
     return out
@@ -1829,7 +1917,11 @@ def main() -> int:
         if name in times and name in pre_times:
             extra["pretrain_shape"] = {
                 k: pre_times[name][k] for k in ("shape", "ms", "plain_ms",
-                                                "bound_ms", "library_ms")}
+                                                "bound_ms", "design_bound_ms",
+                                                "library_ms")
+                if k in pre_times[name]}
+        if "design_bound_ms" in t:
+            extra["design_bound_ms"] = t["design_bound_ms"]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(c[name] for c in by_path.values()),

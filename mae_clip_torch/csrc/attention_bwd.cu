@@ -28,14 +28,19 @@
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16), reckoned from the
 // work each call must do at the flagship training shapes:
-//   * packed, (256, 50, 1152) bf16, 3 heads of 128: reads qkv 29.5 MB and
-//     dO 9.8 MB, writes d_qkv 29.5 MB: 68.8 MB -> 20.5 us, against
-//     2.46 GFLOP -> 2.5 us: bound by bytes.
+//   * packed, (256, 50, 1152) bf16, 3 heads of 128: reads qkv 29.5 MB, dO
+//     and the forward's output 9.8 MB each and lse 0.15 MB, writes d_qkv
+//     29.5 MB: 78.8 MB -> 23.5 us, against 2.46 GFLOP -> 2.5 us: bound by
+//     bytes. At the MAE-paper decoder's (256, 197, 768), 2 heads: 207 MB
+//     -> 62 us against 35.6 GFLOP (7 products) -> 36 us. The packed entry
+//     runs the LSE bodies (attention_bwd.cuh): the forward's lse and output
+//     replace the recomputed row statistics, so the dq kernel walks the keys
+//     once.
 //   * flash, q (256, 2, 147, 128), k/v (256, 2, 50, 128) bf16: reads q, k,
 //     v, dO 51.6 MB, writes dq, dk, dv 32.4 MB: 84.0 MB -> 25.1 us, against
 //     4.82 GFLOP -> 4.9 us: bound by bytes.
-// A forward that saves the row log-sum-exp (so the backward skips its
-// statistics pass) and wgmma/TMA bodies are later work.
+// The flash entry saves no row statistics in its forward and recomputes
+// them (launch<false>); wgmma/TMA bodies are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,15 +81,15 @@ int flash(const void* q, const void* k, const void* v, const float* mask,
   p.Sk = Sk;
   p.Dh = Dh;
   p.scale = scale;
-  return attn_bwd::launch(p, B, stream);
+  return attn_bwd::launch<false>(p, B, stream);
 }
 
 template <typename T>
-int packed(const void* qkv, const float* mask, const void* dout, void* dqkv,
-           float* scratch, int B, int S, int H, int Dh, float scale,
-           cudaStream_t stream) {
+int packed(const void* qkv, const float* mask, const void* out,
+           const float* lse, const void* dout, void* dqkv, float* scratch,
+           int B, int S, int H, int Dh, float scale, cudaStream_t stream) {
   const T* in = static_cast<const T*>(qkv);
-  T* out = static_cast<T*>(dqkv);
+  T* grad = static_cast<T*>(dqkv);
   const long long hd = (long long)H * Dh;
   const Strides cols = {S * 3 * hd, Dh, 3 * hd};
   BwdParams<T> p = {};
@@ -92,19 +97,21 @@ int packed(const void* qkv, const float* mask, const void* dout, void* dqkv,
   p.k = in + hd;
   p.v = in + 2 * hd;
   p.dout = static_cast<const T*>(dout);
-  p.dq = out;
-  p.dk = out + hd;
-  p.dv = out + 2 * hd;
+  p.dq = grad;
+  p.dk = grad + hd;
+  p.dv = grad + 2 * hd;
   p.mask = mask;
+  p.out = static_cast<const T*>(out);
+  p.lse = lse;
   set_scratch(p, scratch, (long long)B * H * S);
   p.sq = p.sk = p.sv = p.sdq = p.sdk = p.sdv = cols;
-  p.sdo = {S * hd, Dh, hd};
+  p.sdo = p.so = {S * hd, Dh, hd};
   p.H = H;
   p.Sq = S;
   p.Sk = S;
   p.Dh = Dh;
   p.scale = scale;
-  return attn_bwd::launch(p, B, stream);
+  return attn_bwd::launch<true>(p, B, stream);
 }
 
 }  // namespace
@@ -130,19 +137,22 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// qkv, dqkv: contiguous (B, S, 3*H*Dh), columns (3, H, Dh); dout: contiguous
-// (B, S, H*Dh); scratch: 3*B*H*S floats. Returns a cudaError_t.
+// qkv, dqkv: contiguous (B, S, 3*H*Dh), columns (3, H, Dh); out (the
+// forward's output) and dout: contiguous (B, S, H*Dh); lse: the forward's
+// (B*H, S) fp32 row log-sum-exp; scratch: 3*B*H*S floats. Returns a
+// cudaError_t.
 int qkv_packed_attention_bwd(const void* qkv, const float* mask,
+                             const void* out, const float* lse,
                              const void* dout, void* dqkv, float* scratch,
                              int B, int S, int H, int Dh, float scale,
                              int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return packed<float>(qkv, mask, dout, dqkv, scratch, B, S, H, Dh, scale,
-                         s);
+    return packed<float>(qkv, mask, out, lse, dout, dqkv, scratch, B, S, H,
+                         Dh, scale, s);
   if (dtype == 1)
-    return packed<__nv_bfloat16>(qkv, mask, dout, dqkv, scratch, B, S, H, Dh,
-                                 scale, s);
+    return packed<__nv_bfloat16>(qkv, mask, out, lse, dout, dqkv, scratch, B,
+                                 S, H, Dh, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,8 +4,7 @@
 // source that includes it.
 //
 // Math (the same as the plain versions in ops/attention.py and
-// ops/block_kernel.py, which follow the TPU kernels): the softmax is
-// recomputed, never saved by the forward.
+// ops/block_kernel.py, which follow the TPU kernels):
 //   s  = (q . k) * scale in fp32; masked keys -0.7 * FLT_MAX; keys past Sk
 //        -inf (absent, never padding)
 //   P  = exp(s - m) / max(l, 1e-30), fp32, m and l over the whole row
@@ -18,27 +17,58 @@
 //   accumulated in fp32 and rounded to the input type on store (and, where
 //   the caller asks, also stored unrounded in fp32).
 //
-// Design: two kernels, no atomics, a deterministic result; each in two
-// bodies, as the forward kernels: a tensor-core body for bf16 at Dh = 64 or
-// 128 with 16-byte aligned rows (the training path), and a scalar-FMA body
-// for fp32 and every other case.
+// No atomics, a deterministic result. launch<LSE> picks the bodies at
+// compile time.
+//
+// LSE = true (#3, whose forward saved the row log-sum-exp lse = m +
+// log(max(l, 1e-30)) and the output O): FlashAttention-2's formulation.
+// P = exp(s - lse) directly, computed as exp2(s * scale * log2(e) - lse *
+// log2(e)) (uniform 1/Sk on a row whose keys are all masked, whose lse is
+// -0.7 * FLT_MAX), and delta = rowsum(dO * O) in fp32, equal to rowsum(P *
+// dP) in exact arithmetic. Tensor-core bodies (bf16, Dh 64 or 128, 16-byte
+// aligned rows):
+//   * Sq, Sk <= 64 (the encoder's S = 50): attn_bwd_one_tile_kernel, one
+//     block per batch*head, 5 tile products (see the kernel).
+//   * Otherwise two kernels, launched in this order:
+//     attn_bwd_dq_lse_kernel, one block per (batch*head, 64-query tile):
+//     first delta for its rows (dO from shared memory, O straight from
+//     device memory; stored for the dk/dv kernel), then ONE pass over the
+//     keys: S, dP, dS and dq += dS . k. attn_bwd_dkdv_lse_kernel, one
+//     block per (batch*head, 64-key tile): S^T, dP^T from the same lse and
+//     delta, then dv += P^T . dO and dk += dS^T . q. That is 7 tile products
+//     per (query tile, key tile) pair, against the recomputing bodies' 9
+//     when Sk > 64. Both walk the other operand in 32-row stages through a
+//     two-stage cp.async ring (the next stage loads while this one's
+//     products run; one __syncthreads per stage).
+//   All read every fragment with ldmatrix (.trans for the right operand of
+//   dq += dS k, dv += P^T dO and dk += dS^T q), skip 16-row chunks past Sq
+//   or Sk and warps whose 16 rows all lie past them. 68 KB of shared memory
+//   per block at Dh = 128 and 168 registers a thread: three blocks per SM.
+//   A fourth would need 128 registers; the dk/dv accumulators alone take
+//   128 (16 keys x 128 columns x 2 per warp).
+//   fp32 and every other case take the recomputing scalar body below (the
+//   forward's lse and O are then not read).
+//
+// LSE = false (#4 and the block stack's backward, which save no row
+// statistics): the row statistics are recomputed.
 //   * attn_bwd_dq_kernel: one block per (batch*head, 64-query tile). Pass 1
 //     walks the 64-key tiles and keeps m, l and sum(exp(s - m) * dP) online
 //     (rescaled as in the forward), which gives the row statistics m, l and
 //     delta; they go to an fp32 scratch (3, B*H, Sq). Pass 2 walks the key
 //     tiles again for dS and accumulates dq in registers. With a single key
-//     tile (Sk <= 64: both training shapes) pass 2 reuses pass 1's scores
-//     and tiles instead of recomputing them.
+//     tile (Sk <= 64) pass 2 reuses pass 1's scores and tiles instead of
+//     recomputing them.
 //   * attn_bwd_dkdv_kernel: one block per (batch*head, 64-key tile). It
 //     walks the 64-query tiles, recomputes P and dS from the row statistics,
 //     and accumulates dk and dv in registers.
-//   Tensor-core body: 4 warps of 16 rows (queries in the dq kernel, keys in
-//   the dk/dv kernel), bf16 tiles in shared memory with rows padded by 8
-//   elements; the five products run on mma.sync.m16n8k16 (bf16 in, fp32
-//   accumulate). S and dP stay in registers in the mma C layout; P and dS
-//   are repacked there as the bf16 A fragments of the next product (which
-//   is where they round to bf16), so no score tile goes to shared memory.
-//   68 KB of shared memory per block at Dh = 128.
+//   Tensor-core body (bf16, Dh 64 or 128): 4 warps of 16 rows (queries in
+//   the dq kernel, keys in the dk/dv kernel), bf16 tiles in shared memory
+//   with rows padded by 8 elements, loaded between two __syncthreads; the
+//   five products run on mma.sync.m16n8k16 (bf16 in, fp32 accumulate). S
+//   and dP stay in registers in the mma C layout; P and dS are repacked
+//   there as the bf16 A fragments of the next product (which is where they
+//   round to bf16), so no score tile goes to shared memory. 68 KB of shared
+//   memory per block at Dh = 128.
 //   Scalar body: tiles in shared memory as fp32 (rows padded to Dh + 1: no
 //   bank conflicts on the column walks); each thread owns 4 rows x 4
 //   columns of a 64 x 64 score tile and 4 rows x Dh/16 columns of each
@@ -60,6 +90,8 @@ namespace attn_bwd {
 
 constexpr int kTile = 64;     // query rows or key rows per tile
 constexpr int kThreads = 256;
+constexpr int kStageRows = 32;  // keys (dq) or queries (dk/dv) per stage
+constexpr int kRing = 2;        // stages in the cp.async ring
 constexpr int kCols = kMaxHeadDim / 16;  // accumulator columns per thread
 
 template <typename T>
@@ -75,12 +107,15 @@ struct BwdParams {
   float* row_m;       // (B*H, Sq) row max of s
   float* row_l;       // (B*H, Sq) row sum of exp(s - m)
   float* row_delta;   // (B*H, Sq) rowsum(P * dP)
+  // The forward's output and row log-sum-exp (read by the LSE bodies).
+  const T* out;
+  const float* lse;   // (B*H, Sq)
   // Optional fp32 copies of dq, dk, dv before their rounding, with the
   // strides of dq, dk, dv (the block stacks sum them into bias gradients).
   float* dq_f;
   float* dk_f;
   float* dv_f;
-  Strides sq, sk, sv, sdo, sdq, sdk, sdv;
+  Strides sq, sk, sv, sdo, sdq, sdk, sdv, so;
   int H, Sq, Sk, Dh;
   float scale;
 };
@@ -474,15 +509,6 @@ __device__ __forceinline__ void mask_tile(float (&s)[8][4], const float* mb,
     }
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
     attn_bwd_dq_mma_kernel(BwdParams<__nv_bfloat16> p) {
@@ -705,6 +731,581 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// LSE bodies: the forward's lse and output given (see the top of the file).
+// ---------------------------------------------------------------------------
+
+// acc + x . y over 8 bf16 pairs.
+__device__ __forceinline__ float dot8(uint4 x, uint4 y, float acc) {
+  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(a[i]), v = __bfloat1622float2(b[i]);
+    acc = fmaf(u.x, v.x, acc);
+    acc = fmaf(u.y, v.y, acc);
+  }
+  return acc;
+}
+
+// The 16-row chunks, at most cap, of the rows from row0 on that lie below n.
+__device__ __forceinline__ int live_chunks(int row0, int n, int cap) {
+  return min(cap, div_up(n - row0, 16));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 3)
+    attn_bwd_dq_lse_kernel(BwdParams<__nv_bfloat16> p) {
+  constexpr int kLd = D + 8, kStage = kStageRows * kLd;
+  constexpr int kChunks = kStageRows / 16, kN = kStageRows / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dos = qs + kTile * kLd;
+  __nv_bfloat16* ring = dos + kTile * kLd;  // kRing stages of (K, V) rows
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, r0 = warp * 16;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x * kTile;
+  const bool active = q0 + r0 < p.Sq;  // the warp holds a query row
+  const __nv_bfloat16* kb = p.k + b * p.sk.b + h * p.sk.h;
+  const __nv_bfloat16* vb = p.v + b * p.sv.b + h * p.sv.h;
+  const float* mb = p.mask ? p.mask + (long long)b * p.Sk : nullptr;
+  const long long rows = (long long)bh * p.Sq;
+
+  auto load_stage = [&](int st) {
+    const int k0 = st * kStageRows;
+    const int n = 16 * live_chunks(k0, p.Sk, kChunks);
+    __nv_bfloat16* ks = ring + (st % kRing) * 2 * kStage;
+    load_tile_async<D>(ks, kb, k0, n, p.Sk, p.sk.r);
+    load_tile_async<D>(ks + kStage, vb, k0, n, p.Sk, p.sv.r);
+  };
+  const int n_stages = div_up(p.Sk, kStageRows);
+  const int q_rows = 16 * live_chunks(q0, p.Sq, kTile / 16);
+  load_tile_async<D>(qs, p.q + b * p.sq.b + h * p.sq.h, q0, q_rows, p.Sq,
+                     p.sq.r);
+  load_tile_async<D>(dos, p.dout + b * p.sdo.b + h * p.sdo.h, q0, q_rows,
+                     p.Sq, p.sdo.r);
+  cp_async_commit();
+#pragma unroll
+  for (int st = 0; st < kRing - 1; ++st) {
+    if (st < n_stages) load_stage(st);
+    cp_async_commit();
+  }
+
+  // This lane's rows g and g + 8 of the warp's 16: the forward's lse, and
+  // delta = rowsum(dO * O), from dO in shared memory and O in device memory
+  // (stored for the dk/dv kernel).
+  float lse2[2], delta[2];  // lse2: lse * log2(e)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + r0 + g + 8 * hr;
+    lse2[hr] = row < p.Sq ? p.lse[rows + row] * kLog2e : 0.f;
+  }
+  const float sc2 = p.scale * kLog2e;
+  cp_async_wait<kRing - 1>();  // Q and dO have landed ...
+  __syncthreads();             // ... for every thread
+  if (active) {
+    const __nv_bfloat16* ob = p.out + b * p.so.b + h * p.so.h;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = q0 + r0 + g + 8 * hr;
+      float acc = 0.f;
+      if (row < p.Sq)
+#pragma unroll
+        for (int c = t; c < D / 8; c += 4)
+          acc = dot8(
+              *reinterpret_cast<const uint4*>(dos + (r0 + g + 8 * hr) * kLd +
+                                              8 * c),
+              *reinterpret_cast<const uint4*>(ob + row * p.so.r + 8 * c),
+              acc);
+      delta[hr] = quad_sum(acc);
+      if (t == 0 && row < p.Sq) p.row_delta[rows + row] = delta[hr];
+    }
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait<kRing - 2>();  // stage st has landed ...
+    __syncthreads();  // ... for every thread, and stage st - 1 is read
+    if (st + kRing - 1 < n_stages) load_stage(st + kRing - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const int k0 = st * kStageRows;
+    const int nc = live_chunks(k0, p.Sk, kChunks);
+    const __nv_bfloat16* ks = ring + (st % kRing) * 2 * kStage;
+    const __nv_bfloat16* vs = ks + kStage;
+
+    // S = Q K^T and dP = dO V^T: 16 rows x 32 keys, s[n][2 * hr + e] is row
+    // g + 8 * hr, key k0 + 8n + 2t + e.
+    float s[kN][4], dp[kN][4];
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {  // a step's fragments, then its
+      uint32_t a[4], ad[4], bk[kChunks][4], bv[kChunks][4];  // products
+      frag_a<kLd>(a, qs, r0, kc * 16);
+      frag_a<kLd>(ad, dos, r0, kc * 16);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        if (c >= nc) continue;
+        frag_b_rows_n<kLd>(bk[c], ks, c * 16, kc * 16);
+        frag_b_rows_n<kLd>(bv[c], vs, c * 16, kc * 16);
+      }
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        if (c >= nc) continue;
+        mma_bf16(s[2 * c], a, bk[c][0], bk[c][1]);
+        mma_bf16(s[2 * c + 1], a, bk[c][2], bk[c][3]);
+        mma_bf16(dp[2 * c], ad, bv[c][0], bv[c][1]);
+        mma_bf16(dp[2 * c + 1], ad, bv[c][2], bv[c][3]);
+      }
+    }
+    // dS = P (dP - delta) with P = exp(s * scale - lse) (in base 2), in
+    // place of s; zero at masked keys and keys past Sk.
+    const bool full = mb == nullptr && k0 + kStageRows <= p.Sk;
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool valid =
+            full || key_valid(mb, k0 + n * 8 + 2 * t + e, p.Sk);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float& x = s[n][2 * hr + e];
+          x = valid ? fast_exp2(fmaf(x, sc2, -lse2[hr])) *
+                          (dp[n][2 * hr + e] - delta[hr])
+                    : 0.f;
+        }
+      }
+    // dq += round(dS) K; step np + 1's fragments load during step np.
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if (c >= nc) continue;
+      uint32_t a[4], bf[2][4];
+      c_to_a(a, s, c);
+      frag_b_rows_k<kLd>(bf[0], ks, c * 16, 0);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        if (np + 1 < D / 16)
+          frag_b_rows_k<kLd>(bf[(np + 1) & 1], ks, c * 16, (np + 1) * 16);
+        mma_bf16(acc[2 * np], a, bf[np & 1][0], bf[np & 1][1]);
+        mma_bf16(acc[2 * np + 1], a, bf[np & 1][2], bf[np & 1][3]);
+      }
+    }
+  }
+
+  if (!active) return;
+  __nv_bfloat16* dqb = p.dq + b * p.sdq.b + h * p.sdq.h;
+  float* dqfb = p.dq_f ? p.dq_f + b * p.sdq.b + h * p.sdq.h : nullptr;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + r0 + g + 8 * hr;
+    if (row >= p.Sq) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const long long i = row * p.sdq.r + n * 8 + 2 * t;
+      const float x0 = acc[n][2 * hr] * p.scale;
+      const float x1 = acc[n][2 * hr + 1] * p.scale;
+      *reinterpret_cast<__nv_bfloat162*>(dqb + i) =
+          __floats2bfloat162_rn(x0, x1);
+      if (dqfb) *reinterpret_cast<float2*>(dqfb + i) = make_float2(x0, x1);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 3)
+    attn_bwd_dkdv_lse_kernel(BwdParams<__nv_bfloat16> p) {
+  constexpr int kLd = D + 8, kStage = kStageRows * kLd;
+  constexpr int kChunks = kStageRows / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + kTile * kLd;
+  // kRing stages of (Q rows, dO rows, lse, delta).
+  constexpr int kStageSize = 2 * kStage + 4 * kStageRows;
+  __nv_bfloat16* ring = vs + kTile * kLd;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, r0 = warp * 16;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int k0 = blockIdx.x * kTile;
+  const bool active = k0 + r0 < p.Sk;  // the warp holds a key row
+  const __nv_bfloat16* qb = p.q + b * p.sq.b + h * p.sq.h;
+  const __nv_bfloat16* dob = p.dout + b * p.sdo.b + h * p.sdo.h;
+  const float* mb = p.mask ? p.mask + (long long)b * p.Sk : nullptr;
+  const long long rows = (long long)bh * p.Sq;
+
+  auto load_stage = [&](int st) {
+    const int q0 = st * kStageRows;
+    const int n = 16 * live_chunks(q0, p.Sq, kChunks);
+    __nv_bfloat16* qs = ring + (st % kRing) * kStageSize;
+    load_tile_async<D>(qs, qb, q0, n, p.Sq, p.sq.r);
+    load_tile_async<D>(qs + kStage, dob, q0, n, p.Sq, p.sdo.r);
+    // lse and delta of these queries; zero past Sq, where the zero Q and
+    // dO rows make dP and dO zero, so those columns add nothing.
+    if (threadIdx.x < 2 * kStageRows) {
+      const int i = threadIdx.x % kStageRows, q = q0 + i;
+      const float* src = threadIdx.x < kStageRows ? p.lse : p.row_delta;
+      cp_async4(reinterpret_cast<float*>(qs + 2 * kStage) + threadIdx.x,
+                q < p.Sq ? src + rows + q : src, q < p.Sq);
+    }
+  };
+  const int n_stages = div_up(p.Sq, kStageRows);
+  const int k_rows = 16 * live_chunks(k0, p.Sk, kTile / 16);
+  load_tile_async<D>(ks, p.k + b * p.sk.b + h * p.sk.h, k0, k_rows, p.Sk,
+                     p.sk.r);
+  load_tile_async<D>(vs, p.v + b * p.sv.b + h * p.sv.h, k0, k_rows, p.Sk,
+                     p.sv.r);
+#pragma unroll
+  for (int st = 0; st < kRing - 1; ++st) {  // K and V join stage 0's group
+    if (st < n_stages) load_stage(st);
+    cp_async_commit();
+  }
+
+  // This thread's keys: rows g and g + 8 of its warp's 16.
+  bool valid[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr)
+    valid[hr] = key_valid(mb, k0 + r0 + g + 8 * hr, p.Sk);
+  const float inv_sk = 1.f / p.Sk, sc2 = p.scale * kLog2e;
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait<kRing - 2>();  // stage st has landed ...
+    __syncthreads();  // ... for every thread, and stage st - 1 is read
+    if (st + kRing - 1 < n_stages) load_stage(st + kRing - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const int q0 = st * kStageRows;
+    const int nq = live_chunks(q0, p.Sq, kChunks);
+    const __nv_bfloat16* qs = ring + (st % kRing) * kStageSize;
+    const __nv_bfloat16* dos = qs + kStage;
+    const float* st_lse = reinterpret_cast<const float*>(qs + 2 * kStage);
+    const float* st_delta = st_lse + kStageRows;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if (c >= nq) continue;
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 16 queries;
+      // s[n][2 * hr + e] is key g + 8 * hr, query q0 + 16c + 8n + 2t + e.
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {  // a step's fragments, then
+        uint32_t ak[4], bq[4], av[4], bo[4];  // its products
+        frag_a<kLd>(ak, ks, r0, kc * 16);
+        frag_b_rows_n<kLd>(bq, qs, c * 16, kc * 16);
+        frag_a<kLd>(av, vs, r0, kc * 16);
+        frag_b_rows_n<kLd>(bo, dos, c * 16, kc * 16);
+        mma_bf16(s[0], ak, bq[0], bq[1]);
+        mma_bf16(s[1], ak, bq[2], bq[3]);
+        mma_bf16(dp[0], av, bo[0], bo[1]);
+        mma_bf16(dp[1], av, bo[2], bo[3]);
+      }
+      // P^T and dS^T in place (P in base 2). A query whose keys are all
+      // masked has lse = -0.7 * FLT_MAX and uniform P = 1 / Sk.
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 16 * c + 8 * n + 2 * t + e;
+          const float lq = st_lse[col], dl = st_delta[col];
+          const bool dead = mb != nullptr && lq < 0.5f * kMaskValue;
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            float& x = s[n][2 * hr + e];
+            float& y = dp[n][2 * hr + e];
+            const float pr =
+                dead ? inv_sk
+                     : (valid[hr] ? fast_exp2(fmaf(x, sc2, -lq * kLog2e))
+                                  : 0.f);
+            x = pr;
+            y = valid[hr] ? pr * (y - dl) : 0.f;
+          }
+        }
+      // dv += round(P)^T dO and dk += round(dS)^T Q over these 16
+      // queries, a step's fragments loading during the step before.
+      uint32_t pa[4], da[4], bo[2][4], bq[2][4];
+      c_to_a(pa, s, 0);
+      c_to_a(da, dp, 0);
+      frag_b_rows_k<kLd>(bo[0], dos, c * 16, 0);
+      frag_b_rows_k<kLd>(bq[0], qs, c * 16, 0);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        if (np + 1 < D / 16) {
+          frag_b_rows_k<kLd>(bo[(np + 1) & 1], dos, c * 16, (np + 1) * 16);
+          frag_b_rows_k<kLd>(bq[(np + 1) & 1], qs, c * 16, (np + 1) * 16);
+        }
+        mma_bf16(dv[2 * np], pa, bo[np & 1][0], bo[np & 1][1]);
+        mma_bf16(dv[2 * np + 1], pa, bo[np & 1][2], bo[np & 1][3]);
+        mma_bf16(dk[2 * np], da, bq[np & 1][0], bq[np & 1][1]);
+        mma_bf16(dk[2 * np + 1], da, bq[np & 1][2], bq[np & 1][3]);
+      }
+    }
+  }
+
+  if (!active) return;
+  __nv_bfloat16* dkb = p.dk + b * p.sdk.b + h * p.sdk.h;
+  __nv_bfloat16* dvb = p.dv + b * p.sdv.b + h * p.sdv.h;
+  float* dkfb = p.dk_f ? p.dk_f + b * p.sdk.b + h * p.sdk.h : nullptr;
+  float* dvfb = p.dv_f ? p.dv_f + b * p.sdv.b + h * p.sdv.h : nullptr;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = k0 + r0 + g + 8 * hr;
+    if (key >= p.Sk) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + 2 * t;
+      const long long ik = key * p.sdk.r + col, iv = key * p.sdv.r + col;
+      const float k0v = dk[n][2 * hr] * p.scale;
+      const float k1v = dk[n][2 * hr + 1] * p.scale;
+      *reinterpret_cast<__nv_bfloat162*>(dkb + ik) =
+          __floats2bfloat162_rn(k0v, k1v);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + iv) =
+          __floats2bfloat162_rn(dv[n][2 * hr], dv[n][2 * hr + 1]);
+      if (dkfb) *reinterpret_cast<float2*>(dkfb + ik) = make_float2(k0v, k1v);
+      if (dvfb)
+        *reinterpret_cast<float2*>(dvfb + iv) =
+            make_float2(dv[n][2 * hr], dv[n][2 * hr + 1]);
+    }
+  }
+}
+
+// Sq, Sk <= 64 (the encoder's S = 50): one block per batch*head does the
+// whole backward with 5 tile products instead of 7. Q, K, V and dO are
+// loaded once; warp w takes query rows 16w.. for S, dP and dq, then key rows
+// 16w.. for dk and dv, reading P and dS through shared memory as [query][key]
+// bf16 tiles with 16-byte chunks XOR-swizzled by row (no bank conflicts on
+// the stores or on the transposing ldmatrix). At Dh = 128 they take V's
+// place once dP is done.
+__device__ __forceinline__ int swz64(int row, int col) {
+  return row * 64 + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 3)
+    attn_bwd_one_tile_kernel(BwdParams<__nv_bfloat16> p) {
+  constexpr int kLd = D + 8, kTileSize = kTile * kLd;
+  constexpr bool kInV = kTileSize >= 2 * kTile * kTile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + kTileSize;
+  __nv_bfloat16* vs = ks + kTileSize;
+  __nv_bfloat16* dos = vs + kTileSize;
+  __nv_bfloat16* ps = kInV ? vs : dos + kTileSize;  // P, then dS
+  __nv_bfloat16* dss = ps + kTile * kTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, r0 = warp * 16;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const float* mb = p.mask ? p.mask + (long long)b * p.Sk : nullptr;
+  const long long rows = (long long)bh * p.Sq;
+  const int nq = div_up(p.Sq, 16), nk = div_up(p.Sk, 16);  // live chunks
+
+  load_tile_async<D>(qs, p.q + b * p.sq.b + h * p.sq.h, 0, 16 * nq, p.Sq,
+                     p.sq.r);
+  load_tile_async<D>(ks, p.k + b * p.sk.b + h * p.sk.h, 0, 16 * nk, p.Sk,
+                     p.sk.r);
+  load_tile_async<D>(vs, p.v + b * p.sv.b + h * p.sv.h, 0, 16 * nk, p.Sk,
+                     p.sv.r);
+  load_tile_async<D>(dos, p.dout + b * p.sdo.b + h * p.sdo.h, 0, 16 * nq,
+                     p.Sq, p.sdo.r);
+  cp_async_commit();
+
+  // This lane's query rows g and g + 8 of the warp's 16: lse (in base 2;
+  // +inf past Sq, so P = 0 there) and whether all the row's keys are masked.
+  float lse2[2];
+  bool dead[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + g + 8 * hr;
+    const float lse = row < p.Sq ? p.lse[rows + row] : INFINITY;
+    dead[hr] = mb != nullptr && lse < 0.5f * kMaskValue;
+    lse2[hr] = lse * kLog2e;
+  }
+  const float sc2 = p.scale * kLog2e, inv_sk = 1.f / p.Sk;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // S and dP for the warp's queries; P and dS in their place.
+  float s[8][4], dp[8][4];
+  const bool q_warp = r0 < p.Sq;
+  if (q_warp) {
+    float delta[2];
+    const __nv_bfloat16* ob = p.out + b * p.so.b + h * p.so.h;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = r0 + g + 8 * hr;
+      float acc = 0.f;
+      if (row < p.Sq)
+#pragma unroll
+        for (int c = t; c < D / 8; c += 4)
+          acc = dot8(*reinterpret_cast<const uint4*>(dos + row * kLd + 8 * c),
+                     *reinterpret_cast<const uint4*>(ob + row * p.so.r + 8 * c),
+                     acc);
+      delta[hr] = quad_sum(acc);
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t a[4], ad[4], bk[4][4], bv[4][4];
+      frag_a<kLd>(a, qs, r0, kc * 16);
+      frag_a<kLd>(ad, dos, r0, kc * 16);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c >= nk) continue;
+        frag_b_rows_n<kLd>(bk[c], ks, c * 16, kc * 16);
+        frag_b_rows_n<kLd>(bv[c], vs, c * 16, kc * 16);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c >= nk) continue;
+        mma_bf16(s[2 * c], a, bk[c][0], bk[c][1]);
+        mma_bf16(s[2 * c + 1], a, bk[c][2], bk[c][3]);
+        mma_bf16(dp[2 * c], ad, bv[c][0], bv[c][1]);
+        mma_bf16(dp[2 * c + 1], ad, bv[c][2], bv[c][3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool valid = key_valid(mb, n * 8 + 2 * t + e, p.Sk);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float& x = s[n][2 * hr + e];
+          float& y = dp[n][2 * hr + e];
+          const float pr =
+              dead[hr] ? inv_sk
+                       : (valid ? fast_exp2(fmaf(x, sc2, -lse2[hr])) : 0.f);
+          x = pr;
+          y = valid ? pr * (y - delta[hr]) : 0.f;
+        }
+      }
+
+    // dq = round(dS) K.
+    float acc[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c >= nk) continue;
+      uint32_t a[4], bf[2][4];
+      c_to_a(a, dp, c);
+      frag_b_rows_k<kLd>(bf[0], ks, c * 16, 0);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        if (np + 1 < D / 16)
+          frag_b_rows_k<kLd>(bf[(np + 1) & 1], ks, c * 16, (np + 1) * 16);
+        mma_bf16(acc[2 * np], a, bf[np & 1][0], bf[np & 1][1]);
+        mma_bf16(acc[2 * np + 1], a, bf[np & 1][2], bf[np & 1][3]);
+      }
+    }
+    __nv_bfloat16* dqb = p.dq + b * p.sdq.b + h * p.sdq.h;
+    float* dqfb = p.dq_f ? p.dq_f + b * p.sdq.b + h * p.sdq.h : nullptr;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = r0 + g + 8 * hr;
+      if (row >= p.Sq) continue;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const long long i = row * p.sdq.r + n * 8 + 2 * t;
+        const float x0 = acc[n][2 * hr] * p.scale;
+        const float x1 = acc[n][2 * hr + 1] * p.scale;
+        *reinterpret_cast<__nv_bfloat162*>(dqb + i) =
+            __floats2bfloat162_rn(x0, x1);
+        if (dqfb) *reinterpret_cast<float2*>(dqfb + i) = make_float2(x0, x1);
+      }
+    }
+  }
+  __syncthreads();  // every warp has read V
+  if (q_warp)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int i = swz64(r0 + g + 8 * hr, n * 8 + 2 * t);
+        *reinterpret_cast<uint32_t*>(ps + i) =
+            pack(s[n][2 * hr], s[n][2 * hr + 1]);
+        *reinterpret_cast<uint32_t*>(dss + i) =
+            pack(dp[n][2 * hr], dp[n][2 * hr + 1]);
+      }
+  __syncthreads();
+  if (r0 >= p.Sk) return;
+
+  // dv = round(P)^T dO and dk = round(dS)^T Q for the warp's keys. The
+  // A fragment (keys r0.., queries 16c..) is the transpose of the stored
+  // [query][key] tile: ldmatrix.trans, matrix j covering keys + 8 (j % 2),
+  // queries + 8 (j / 2).
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const int j8 = lane / 8, r8 = lane % 8;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (c >= nq) continue;
+    const int at = swz64(c * 16 + (j8 / 2) * 8 + r8, r0 + (j8 % 2) * 8);
+    uint32_t pa[4], da[4], bo[2][4], bq[2][4];
+    ldsm4_t(pa, ps + at);
+    ldsm4_t(da, dss + at);
+    frag_b_rows_k<kLd>(bo[0], dos, c * 16, 0);
+    frag_b_rows_k<kLd>(bq[0], qs, c * 16, 0);
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      if (np + 1 < D / 16) {
+        frag_b_rows_k<kLd>(bo[(np + 1) & 1], dos, c * 16, (np + 1) * 16);
+        frag_b_rows_k<kLd>(bq[(np + 1) & 1], qs, c * 16, (np + 1) * 16);
+      }
+      mma_bf16(dv[2 * np], pa, bo[np & 1][0], bo[np & 1][1]);
+      mma_bf16(dv[2 * np + 1], pa, bo[np & 1][2], bo[np & 1][3]);
+      mma_bf16(dk[2 * np], da, bq[np & 1][0], bq[np & 1][1]);
+      mma_bf16(dk[2 * np + 1], da, bq[np & 1][2], bq[np & 1][3]);
+    }
+  }
+  __nv_bfloat16* dkb = p.dk + b * p.sdk.b + h * p.sdk.h;
+  __nv_bfloat16* dvb = p.dv + b * p.sdv.b + h * p.sdv.h;
+  float* dkfb = p.dk_f ? p.dk_f + b * p.sdk.b + h * p.sdk.h : nullptr;
+  float* dvfb = p.dv_f ? p.dv_f + b * p.sdv.b + h * p.sdv.h : nullptr;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = r0 + g + 8 * hr;
+    if (key >= p.Sk) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + 2 * t;
+      const long long ik = key * p.sdk.r + col, iv = key * p.sdv.r + col;
+      const float k0v = dk[n][2 * hr] * p.scale;
+      const float k1v = dk[n][2 * hr + 1] * p.scale;
+      *reinterpret_cast<__nv_bfloat162*>(dkb + ik) =
+          __floats2bfloat162_rn(k0v, k1v);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + iv) =
+          __floats2bfloat162_rn(dv[n][2 * hr], dv[n][2 * hr + 1]);
+      if (dkfb) *reinterpret_cast<float2*>(dkfb + ik) = make_float2(k0v, k1v);
+      if (dvfb)
+        *reinterpret_cast<float2*>(dvfb + iv) =
+            make_float2(dv[n][2 * hr], dv[n][2 * hr + 1]);
+    }
+  }
+}
+
 // The tensor-core bodies need 16-byte aligned rows: every pointer on a
 // 16-byte boundary and every stride a multiple of 8 elements.
 inline bool mma_eligible(const BwdParams<__nv_bfloat16>& p) {
@@ -782,19 +1383,80 @@ int launch_scalar(const BwdParams<T>& p, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Runs both kernels over `batch` samples of p's strided views.
-inline int launch(const BwdParams<float>& p, int batch,
-                  cudaStream_t stream) {
+// The LSE bodies also read O (16-byte aligned rows) and need lse and the
+// delta scratch, and put batch * H in the grid's y dimension.
+inline bool lse_eligible(const BwdParams<__nv_bfloat16>& p, int batch) {
+  return p.lse != nullptr && p.out != nullptr && p.row_delta != nullptr &&
+         reinterpret_cast<uintptr_t>(p.out) % 16 == 0 && p.so.b % 8 == 0 &&
+         p.so.h % 8 == 0 && p.so.r % 8 == 0 && (long long)batch * p.H <= 65535;
+}
+
+template <int D>
+int launch_lse_mma(const BwdParams<__nv_bfloat16>& p, int batch,
+                   cudaStream_t stream) {
+  // The 64-row tiles of one operand pair and the two-stage ring of the other.
+  constexpr size_t smem =
+      ((2 * kTile + 2 * kRing * kStageRows) * (D + 8) +
+       4 * kRing * kStageRows) * sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dq_lse_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(attn_bwd_dkdv_lse_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int bh = batch * p.H;
+  attn_bwd_dq_lse_kernel<D>
+      <<<dim3(div_up(p.Sq, kTile), bh), kMmaThreads, smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dkdv_lse_kernel<D>
+      <<<dim3(div_up(p.Sk, kTile), bh), kMmaThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_one_tile(const BwdParams<__nv_bfloat16>& p, int batch,
+                    cudaStream_t stream) {
+  constexpr size_t tile = kTile * (D + 8);
+  constexpr size_t smem =
+      (4 * tile + (tile >= 2 * kTile * kTile ? 0 : 2 * kTile * kTile)) *
+      sizeof(__nv_bfloat16);
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_one_tile_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_one_tile_kernel<D>
+      <<<batch * p.H, kMmaThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// Runs both kernels over `batch` samples of p's strided views. LSE: the
+// caller gives the forward's lse and output (p.lse, p.out, p.so), which the
+// bf16 tensor-core bodies read; the scalar body recomputes in every case.
+template <bool LSE>
+int launch(const BwdParams<float>& p, int batch, cudaStream_t stream) {
   if (!valid_shape(p, batch)) return (int)cudaErrorInvalidValue;
   return launch_scalar(p, batch, stream);
 }
 
-inline int launch(const BwdParams<__nv_bfloat16>& p, int batch,
-                  cudaStream_t stream) {
+template <bool LSE>
+int launch(const BwdParams<__nv_bfloat16>& p, int batch,
+           cudaStream_t stream) {
   if (!valid_shape(p, batch)) return (int)cudaErrorInvalidValue;
   if (!mma_eligible(p)) return launch_scalar(p, batch, stream);
-  return p.Dh == 128 ? launch_mma<128>(p, batch, stream)
-                     : launch_mma<64>(p, batch, stream);
+  if constexpr (LSE) {
+    if (!lse_eligible(p, batch)) return (int)cudaErrorInvalidValue;
+    if (p.Sq <= kTile && p.Sk <= kTile)
+      return p.Dh == 128 ? launch_one_tile<128>(p, batch, stream)
+                         : launch_one_tile<64>(p, batch, stream);
+    return p.Dh == 128 ? launch_lse_mma<128>(p, batch, stream)
+                       : launch_lse_mma<64>(p, batch, stream);
+  } else {
+    return p.Dh == 128 ? launch_mma<128>(p, batch, stream)
+                       : launch_mma<64>(p, batch, stream);
+  }
 }
 
 }  // namespace attn_bwd

@@ -23,18 +23,25 @@
 //   s = (q . k) * scale, fp32; masked keys get -0.7 * FLT_MAX; keys past Sk
 //   (the ragged edge of the last key tile) get -inf and weigh nothing;
 //   online softmax over 64-key tiles with m/l/acc in fp32;
-//   out = acc / max(l, 1e-30), rounded to the input type.
+//   out = acc / max(l, 1e-30), rounded to the input type. The packed entry
+//   also writes the row log-sum-exp lse = m + log(max(l, 1e-30)) (fp32,
+//   (B*H, S)) when given an lse pointer: the training path, whose backward
+//   (#3) reads it instead of recomputing the row statistics.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16), reckoned from the
 // work each call must do:
 //   * packed, ViT-S/16 at B=64, S=197, H=3, Dh=128, bf16: reads 29.0 MB of
-//     qkv and writes 9.7 MB, ~3.8 GFLOP -> memory-bound, ~11.6 us.
+//     qkv and writes 9.7 MB, ~3.8 GFLOP -> memory-bound, ~11.6 us; the
+//     MAE-paper decoder at B=256, S=197, H=2 (training, with lse): reads
+//     77.5 MB, writes 25.8 + 0.4 MB -> ~31 us, against 10.2 GFLOP -> 10 us.
+//     The pipelined body (attention_fwd.cuh) overlaps the loads with the
+//     products and skips the ragged key chunks.
 //   * flash, DistilBERT at B=16, H=6, S=64, Dh=128, bf16: ~6.3 MB moved ->
 //     ~1.9 us; launch overhead dominates at this size.
 //
 // The kernel bodies live in attention_fwd.cuh (shared with the block
 // stacks, which normalise P before rounding it); this file binds them to the
-// two entry points with NORM = false.
+// two entry points with NORM = false (the pipelined tensor-core body).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,8 +75,8 @@ int flash(const void* q, const void* k, const void* v, const float* mask,
 }
 
 template <typename T>
-int packed(const void* qkv, const float* mask, void* o, int B, int S, int H,
-           int Dh, float scale, cudaStream_t stream) {
+int packed(const void* qkv, const float* mask, void* o, float* lse, int B,
+           int S, int H, int Dh, float scale, cudaStream_t stream) {
   const T* base = static_cast<const T*>(qkv);
   const long long hd = (long long)H * Dh;
   const Strides in = {S * 3 * hd, Dh, 3 * hd};
@@ -79,6 +86,7 @@ int packed(const void* qkv, const float* mask, void* o, int B, int S, int H,
   p.v = base + 2 * hd;
   p.o = static_cast<T*>(o);
   p.mask = mask;
+  p.lse = lse;
   p.sq = p.sk = p.sv = in;
   p.so = {S * hd, Dh, hd};
   p.H = H;
@@ -111,14 +119,16 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
 }
 
 // qkv: contiguous (B, S, 3*H*Dh), columns (3, H, Dh); out: contiguous
-// (B, S, H*Dh). Returns a cudaError_t.
+// (B, S, H*Dh); lse: (B*H, S) fp32, or null for no lse. Returns a
+// cudaError_t.
 int qkv_packed_attention_fwd(const void* qkv, const float* mask, void* out,
-                             int B, int S, int H, int Dh, float scale,
-                             int dtype, void* stream) {
+                             float* lse, int B, int S, int H, int Dh,
+                             float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return packed<float>(qkv, mask, out, B, S, H, Dh, scale, s);
+  if (dtype == 0)
+    return packed<float>(qkv, mask, out, lse, B, S, H, Dh, scale, s);
   if (dtype == 1)
-    return packed<__nv_bfloat16>(qkv, mask, out, B, S, H, Dh, scale, s);
+    return packed<__nv_bfloat16>(qkv, mask, out, lse, B, S, H, Dh, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

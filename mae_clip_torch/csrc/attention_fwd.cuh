@@ -9,23 +9,40 @@
 //   (the ragged edge of the last key tile) get -inf and weigh nothing.
 //   NORM = false (#1, #2): online softmax over 64-key tiles with m/l/acc in
 //     fp32, P rounded to the input type unnormalised,
-//     out = acc / max(l, 1e-30).
+//     out = acc / max(l, 1e-30). Where the caller passes p.lse (the
+//     training path of #1), the row log-sum-exp lse = m + log(max(l,
+//     1e-30)) is written too, fp32 (B*H, Sq), for the backward (#3).
 //   NORM = true (the block stacks, after the TPU stack kernel's single-shot
 //     softmax): a first pass over the key tiles gives the row max m and sum
 //     l; the second forms P = exp(s - m) / max(l, 1e-30) in fp32, rounds it
 //     to the input type, and out = P . v. With one key tile (Sk <= 64) the
-//     second pass reuses the first pass's scores.
+//     second pass reuses the first pass's scores. Given p.lse (the stack's
+//     backward, which re-runs the forward), lse = m + log(max(l, 1e-30))
+//     is written as for #1.
 //
-// Design, bf16 with Dh = 64 or 128: attn_fwd_mma_kernel, one block of 4
-// warps per (batch*head, 64-query tile), each warp owning 16 query rows as
-// in FlashAttention-2. The warp keeps its Q rows in registers as mma.sync A
-// fragments; each 64-key tile of K and V is staged in shared memory
-// (row-major, rows padded by 8 elements: no bank conflicts on the fragment
-// loads). S = Q.K^T and O += P.V run on the tensor cores with
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate); the S accumulators are
+// Bodies for bf16 with Dh = 64 or 128 and 16-byte aligned rows, one block of
+// 4 warps per (batch*head, 64-query tile), each warp owning 16 query rows as
+// in FlashAttention-2; S = Q.K^T and O += P.V on the tensor cores
+// (mma.sync.m16n8k16, bf16 in, fp32 accumulate). The S accumulators are
 // rescaled, exponentiated and repacked in registers as the A fragments of
-// P.V, so scores never leave the registers; that repacking is where P
-// rounds to bf16. 35 KB of static shared memory per block at Dh=128.
+// P.V, so scores never leave the registers; that repacking is where P rounds
+// to bf16. Tiles sit in shared memory row-major with rows padded by 8
+// elements (no bank conflicts on ldmatrix).
+//   * attn_fwd_pipe_kernel (NORM = false). A call moves ~3x the bytes it
+//     takes in FLOPs at the bf16 tensor rate, so it is bound by bytes and
+//     by load latency: the tiles arrive by cp.async, the V tile while S
+//     runs and the next K tile during the softmax and P.V
+//     (FlashAttention-2's order, two __syncthreads per key tile). Q, K and
+//     V fragments come from ldmatrix (.trans for V), the next step's while
+//     this step's products run. Keys are walked in 16-key chunks and the
+//     chunks past Sk are skipped (S = 197 is 13 chunks, not 16), and so is
+//     a warp whose 16 query rows all lie past Sq. The softmax runs in base
+//     2 with the scale folded into one FMA before ex2.approx; a full tile
+//     with no mask skips the masking. Shared memory: one Q, one K and one
+//     V tile, 52 KB at Dh = 128; 168 registers, three blocks per SM.
+//   * attn_fwd_norm_kernel (NORM = true): each tile loaded into registers
+//     and stored to shared memory between two __syncthreads, fragments by
+//     32-bit and 16-bit shared loads; 35 KB of static shared memory.
 //
 // Every other case (fp32 inputs, other head dims, strides not a multiple of
 // 8 elements): attn_fwd_kernel, one block of 256 threads with scalar fp32
@@ -61,6 +78,7 @@ struct Params {
   const T* v;
   T* o;
   const float* mask;  // (B, Sk), > 0 = valid key; nullptr = all valid
+  float* lse;         // (B*H, Sq) row log-sum-exp, written if not null
   Strides sq, sk, sv, so;
   int H, Sq, Sk, Dh;
   float scale;
@@ -236,12 +254,15 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params<T> p) {
       const int col = tx + 16 * c;
       if (col < p.Dh) store(&ob[row * p.so.r + col], acc[i][c] / l);
     }
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(long long)blockIdx.y * p.Sq + row] =
+          m_i[i] + logf(fmaxf(l_i[i], 1e-30f));
   }
 }
 
-template <int D, bool NORM>
+template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
-    attn_fwd_mma_kernel(Params<__nv_bfloat16> p) {
+    attn_fwd_norm_kernel(Params<__nv_bfloat16> p) {
   constexpr int kLd = D + 8;
   __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * kLd];
   __shared__ __align__(16) __nv_bfloat16 vs[kBlockK * kLd];
@@ -311,83 +332,50 @@ __global__ void __launch_bounds__(kMmaThreads)
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const int n_tiles = (p.Sk + kBlockK - 1) / kBlockK;
 
-  if (NORM) {  // pass 1: the row max and sum over every key
-    for (int k0 = 0; k0 < p.Sk; k0 += kBlockK) {
-      __syncthreads();  // Q fragments / the previous tile are read
-      load_tile<D>(ks, kb, k0, p.Sk, p.sk.r);
-      __syncthreads();
-      scores(k0);
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          mx = fmaxf(mx, fmaxf(s[n][2 * hr], s[n][2 * hr + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[hr], mx);
-        float se = 0.f;
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          se += expf(s[n][2 * hr] - m_new) + expf(s[n][2 * hr + 1] - m_new);
-        l[hr] = l[hr] * expf(m[hr] - m_new) + se;
-        m[hr] = m_new;
-      }
-    }
+  // Pass 1: the row max and sum over every key.
+  for (int k0 = 0; k0 < p.Sk; k0 += kBlockK) {
+    __syncthreads();  // Q fragments / the previous tile are read
+    load_tile<D>(ks, kb, k0, p.Sk, p.sk.r);
+    __syncthreads();
+    scores(k0);
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
-      l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
-      l[hr] = fmaxf(l[hr], 1e-30f);
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * hr], s[n][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      float se = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        se += expf(s[n][2 * hr] - m_new) + expf(s[n][2 * hr + 1] - m_new);
+      l[hr] = l[hr] * expf(m[hr] - m_new) + se;
+      m[hr] = m_new;
     }
   }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+    l[hr] = fmaxf(l[hr], 1e-30f);
+  }
 
+  // Pass 2: P normalised, rounded, times V.
   for (int k0 = 0; k0 < p.Sk; k0 += kBlockK) {
-    // With NORM and one key tile, ks and the scores are pass 1's.
-    const bool reuse = NORM && n_tiles == 1;
+    // With one key tile, ks and the scores are pass 1's.
+    const bool reuse = n_tiles == 1;
     __syncthreads();  // Q fragments / the previous tile are read
     if (!reuse) load_tile<D>(ks, kb, k0, p.Sk, p.sk.r);
     load_tile<D>(vs, vb, k0, p.Sk, p.sv.r);
     __syncthreads();
     if (!reuse) scores(k0);
-
-    if (NORM) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[n][e] = expf(s[n][e] - m[e / 2]) / l[e / 2];
-    } else {
-      // Online softmax; a row's 64 keys are spread over the 4 lanes of its
-      // group. Key 0 of the first tile is finite, so m stays finite after
-      // it.
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          mx = fmaxf(mx, fmaxf(s[n][2 * hr], s[n][2 * hr + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[hr], mx);
-        const float alpha = expf(m[hr] - m_new);
-        m[hr] = m_new;
-        l[hr] *= alpha;
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float pe = expf(s[n][2 * hr + e] - m_new);
-            s[n][2 * hr + e] = pe;
-            l[hr] += pe;
-          }
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          o[n][2 * hr] *= alpha;
-          o[n][2 * hr + 1] *= alpha;
-        }
-      }
-    }
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = expf(s[n][e] - m[e / 2]) / l[e / 2];
 
     // O += P V, P repacked from the S accumulators as 16-key A fragments.
 #pragma unroll
@@ -407,19 +395,179 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    float sum = 1.f;
-    if (!NORM) {
-      sum = l[hr];
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum = fmaxf(sum, 1e-30f);
-    }
     const int row = q0 + r0 + 8 * hr;
     if (row >= p.Sq) continue;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(ob + row * p.so.r + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[n][2 * hr] / sum, o[n][2 * hr + 1] / sum);
+          __floats2bfloat162_rn(o[n][2 * hr], o[n][2 * hr + 1]);
+    if (p.lse != nullptr && t == 0)
+      p.lse[(long long)blockIdx.y * p.Sq + row] = m[hr] + logf(l[hr]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 3)
+    attn_fwd_pipe_kernel(Params<__nv_bfloat16> p) {
+  constexpr int kLd = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + kBlockQ * kLd;
+  __nv_bfloat16* vs = ks + kBlockK * kLd;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, r0 = warp * 16;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x * kBlockQ;
+  const bool active = q0 + r0 < p.Sq;  // the warp holds a query row
+
+  const __nv_bfloat16* kb = p.k + b * p.sk.b + h * p.sk.h;
+  const __nv_bfloat16* vb = p.v + b * p.sv.b + h * p.sv.h;
+  const float* mb = p.mask ? p.mask + (long long)b * p.Sk : nullptr;
+  // The 16-row chunks of the 64-row tile at row0 that hold a row below n.
+  auto chunks = [](int row0, int n) { return min(4, div_up(n - row0, 16)); };
+
+  load_tile_async<D>(qs, p.q + b * p.sq.b + h * p.sq.h, q0,
+                     16 * chunks(q0, p.Sq), p.Sq, p.sq.r);
+  load_tile_async<D>(ks, kb, 0, 16 * chunks(0, p.Sk), p.Sk, p.sk.r);
+  load_tile_async<D>(vs, vb, 0, 16 * chunks(0, p.Sk), p.Sk, p.sv.r);
+  cp_async_commit();
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  // The softmax runs in base 2 on s * scale * log2(e): m is the row's max,
+  // reduced over the 4 lanes of its group; l is this lane's share of the
+  // row sum.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float sc2 = p.scale * kLog2e;
+  const int n_tiles = div_up(p.Sk, kBlockK);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kBlockK, nc = chunks(k0, p.Sk);
+    cp_async_wait<0>();  // this K tile has landed ...
+    __syncthreads();     // ... for every thread, and the V tile is read
+    if (kt > 0) load_tile_async<D>(vs, vb, k0, 16 * nc, p.Sk, p.sv.r);
+    cp_async_commit();   // the V tile loads while S is computed
+    // S = Q K^T over the live chunks: s[n][2 * hr + e] is row g + 8 * hr,
+    // key k0 + 8n + 2t + e. The fragments of step kc + 1 load while the
+    // products of step kc run.
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    if (active) {
+      uint32_t a[2][4], bk[2][4][4];
+      auto frags = [&](int kc, int buf) {
+        frag_a<kLd>(a[buf], qs, r0, kc * 16);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (c < nc) frag_b_rows_n<kLd>(bk[buf][c], ks, c * 16, kc * 16);
+      };
+      frags(0, 0);
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        if (kc + 1 < D / 16) frags(kc + 1, (kc + 1) & 1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (c >= nc) continue;
+          mma_bf16(s[2 * c], a[kc & 1], bk[kc & 1][c][0], bk[kc & 1][c][1]);
+          mma_bf16(s[2 * c + 1], a[kc & 1], bk[kc & 1][c][2],
+                   bk[kc & 1][c][3]);
+        }
+      }
+    }
+    cp_async_wait<0>();  // this V tile has landed ...
+    __syncthreads();     // ... for every thread, and the K tile is read
+    if (kt + 1 < n_tiles)  // the next K tile loads during softmax and P V
+      load_tile_async<D>(ks, kb, k0 + kBlockK,
+                         16 * chunks(k0 + kBlockK, p.Sk), p.Sk, p.sk.r);
+    cp_async_commit();
+    if (!active) continue;
+
+    // A full tile with no mask keeps the raw scores (the scale folds into
+    // the exponent); else scale and mask: masked keys score
+    // -0.7 * FLT_MAX, keys past Sk (and the skipped chunks) -inf. Key 0 of
+    // the first tile is finite, so m stays finite after it.
+    const bool full = mb == nullptr && k0 + kBlockK <= p.Sk;
+    const float mul = full ? sc2 : 1.f;
+    if (!full) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + n * 8 + 2 * t + e;
+          const bool in = key < p.Sk;
+          const bool valid = in && (mb == nullptr || mb[key] > 0.f);
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            float& x = s[n][2 * hr + e];
+            x = !in ? -INFINITY : (valid ? x * sc2 : kMaskValue);
+          }
+        }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * hr], s[n][2 * hr + 1]));
+      const float m_new = fmaxf(m[hr], quad_max(mx) * mul);
+      const float alpha = fast_exp2(m[hr] - m_new);
+      m[hr] = m_new;
+      l[hr] *= alpha;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)  // skipped chunks: exp2(-inf) = 0
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[n][2 * hr + e];
+          x = fast_exp2(fmaf(x, mul, -m_new));
+          l[hr] += x;
+        }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[n][2 * hr] *= alpha;
+        o[n][2 * hr + 1] *= alpha;
+      }
+    }
+
+    // O += P V, P repacked from the S accumulators as 16-key A fragments;
+    // the V fragments of step np + 1 load while step np's products run.
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c >= nc) continue;
+      uint32_t pa[4], bv[2][4];
+      c_to_a(pa, s, c);
+      frag_b_rows_k<kLd>(bv[0], vs, c * 16, 0);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        if (np + 1 < D / 16)
+          frag_b_rows_k<kLd>(bv[(np + 1) & 1], vs, c * 16, (np + 1) * 16);
+        mma_bf16(o[2 * np], pa, bv[np & 1][0], bv[np & 1][1]);
+        mma_bf16(o[2 * np + 1], pa, bv[np & 1][2], bv[np & 1][3]);
+      }
+    }
+  }
+
+  if (!active) return;
+  __nv_bfloat16* ob = p.o + b * p.so.b + h * p.so.h;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const float sum = fmaxf(quad_sum(l[hr]), 1e-30f), inv = 1.f / sum;
+    const int row = q0 + r0 + g + 8 * hr;
+    if (row >= p.Sq) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row * p.so.r + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[n][2 * hr] * inv, o[n][2 * hr + 1] * inv);
+    // lse = m + log(l) in base e; a row whose keys are all masked has
+    // m = -0.7 * FLT_MAX, which keeps that value (as in base e).
+    if (p.lse != nullptr && t == 0)
+      p.lse[(long long)bh * p.Sq + row] =
+          m[hr] <= 0.5f * kMaskValue ? kMaskValue
+                                     : (m[hr] + log2f(sum)) * kLn2;
   }
 }
 
@@ -466,17 +614,35 @@ int launch(const Params<float>& p, int batch, cudaStream_t stream) {
   return launch_scalar<NORM>(p, batch, stream);
 }
 
+template <int D>
+int launch_pipe(const Params<__nv_bfloat16>& p, int batch,
+                cudaStream_t stream) {
+  constexpr size_t smem = 3 * kBlockK * (D + 8) * sizeof(__nv_bfloat16);
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_pipe_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(div_up(p.Sq, kBlockQ), batch * p.H);
+  attn_fwd_pipe_kernel<D><<<grid, kMmaThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <bool NORM>
 int launch(const Params<__nv_bfloat16>& p, int batch, cudaStream_t stream) {
   if (!valid_shape(batch, p.H, p.Sq, p.Sk, p.Dh))
     return (int)cudaErrorInvalidValue;
   if (!mma_eligible(p)) return launch_scalar<NORM>(p, batch, stream);
-  const dim3 grid((p.Sq + kBlockQ - 1) / kBlockQ, batch * p.H);
-  if (p.Dh == 128)
-    attn_fwd_mma_kernel<128, NORM><<<grid, kMmaThreads, 0, stream>>>(p);
-  else
-    attn_fwd_mma_kernel<64, NORM><<<grid, kMmaThreads, 0, stream>>>(p);
-  return (int)cudaGetLastError();
+  if constexpr (!NORM) {
+    return p.Dh == 128 ? launch_pipe<128>(p, batch, stream)
+                       : launch_pipe<64>(p, batch, stream);
+  } else {
+    const dim3 grid((p.Sq + kBlockQ - 1) / kBlockQ, batch * p.H);
+    if (p.Dh == 128)
+      attn_fwd_norm_kernel<128><<<grid, kMmaThreads, 0, stream>>>(p);
+    else
+      attn_fwd_norm_kernel<64><<<grid, kMmaThreads, 0, stream>>>(p);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace attn_fwd

@@ -15,7 +15,8 @@
 // fused_block_stack_bwd_ref in ops/block_kernel.py):
 //   da1 = (dq . Wfc2) * gelu'(a1);       dh2 = round(da1) . Wfc1
 //   dx1 = dq + LNbwd(dh2);               dctx = round(round(dx1) . Wproj)
-//   attention: dV = round(P)^T dctx, dP = dctx V^T, delta = rowsum(P dP),
+//   attention: dV = round(P)^T dctx, dP = dctx V^T, delta = rowsum(P dP)
+//     (taken as rowsum(dctx ctx), equal in exact arithmetic),
 //     dS = round(P (dP - delta)), dq = dS K * scale, dk = dS^T Q * scale
 //   dh = round(dqp) . Wq (+ round(dkvp) . Wkv in self mode)
 //   dx = dx1 + LNbwd(dh) -> the previous block's dq, rounded to dout's type
@@ -28,8 +29,9 @@
 // Design. Per block, in reverse: the forward's launches again, then the
 // GEMMs of the input gradients (tensor-core bodies as in the forward, with
 // the weight read transposed by ldmatrix.trans), the attention backward of
-// kernels #3/#4 (attention_bwd.cuh: one block per (sample*head, 64-query
-// tile) for the row statistics, dS and dq; one per (sample*head, 64-key
+// kernel #3 (attention_bwd.cuh's LSE bodies, from the re-run forward's
+// row log-sum-exp and output: one kernel at Sq, Sk <= 64, else one block
+// per (sample*head, 64-query tile) for dq and one per (sample*head, 64-key
 // tile) for dk and dv; no atomics) on the stack's qp/kvp rows, which also
 // stores dqp and dkvp in fp32 for the bias gradients, a
 // LayerNorm backward that also writes per-64-row column partials of
@@ -315,8 +317,11 @@ int stack_bwd(const T* qstack, const T* kv, const void* const* w_,
   const int M = (int)s.M(), Mk = (int)s.Mk(), D = s.D, F = s.F;
   const long long MD = (long long)M * D, BHS = (long long)s.B * s.H * s.Sq;
 
-  const attn_fwd::Params<T> at =
+  // The re-run forward writes the row log-sum-exp into stats[0 .. BHS) for
+  // the attention backward, which also reads its output ctx.
+  attn_fwd::Params<T> at =
       block_attention(s, (const T*)buf.qp, (const T*)buf.kvp, buf.ctx);
+  at.lse = buf.stats;
   // Its backward, from d ctx: dqp (B*Sq, D) and dkvp (B*Sk', 2D) in the
   // layouts of qp and kvp, rounded and in fp32.
   attn_bwd::BwdParams<T> ab = {};
@@ -333,6 +338,9 @@ int stack_bwd(const T* qstack, const T* kv, const void* const* w_,
   ab.row_m = buf.stats;
   ab.row_l = buf.stats + BHS;
   ab.row_delta = buf.stats + 2 * BHS;
+  ab.out = at.o;
+  ab.so = at.so;
+  ab.lse = buf.stats;
   ab.sq = ab.sdo = ab.sdq = at.sq;
   ab.sk = ab.sv = ab.sdk = ab.sdv = at.sk;
   ab.H = at.H;
@@ -420,7 +428,7 @@ int stack_bwd(const T* qstack, const T* kv, const void* const* w_,
                       buf.wpart, dwl(kWproj), st));
     CHECK(bias_grad((const float*)buf.dx1_f, M, D, buf.colpart,
                     dwl(kBproj), st));
-    CHECK(attn_bwd::launch(ab, s.B, st));
+    CHECK(attn_bwd::launch</*LSE=*/true>(ab, s.B, st));
     g = bwd_gemm((const T*)buf.dqp_t, wl(kWq), M, D, D, kEpiF32);
     g.outf = buf.dh_f;
     CHECK(gemm(g, 1, st));

@@ -114,7 +114,7 @@ def load_attention() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, _STRIDES, i32, i32, i32, i32, i32, f32, i32, vp]
     lib.flash_attention_fwd.restype = i32
     lib.qkv_packed_attention_fwd.argtypes = [
-        vp, vp, vp, i32, i32, i32, i32, f32, i32, vp]
+        vp, vp, vp, vp, i32, i32, i32, i32, f32, i32, vp]
     lib.qkv_packed_attention_fwd.restype = i32
     lib.attention_error_string.argtypes = [i32]
     lib.attention_error_string.restype = ctypes.c_char_p
@@ -131,7 +131,7 @@ def load_attention_bwd() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, f32, i32, vp]
     lib.flash_attention_bwd.restype = i32
     lib.qkv_packed_attention_bwd.argtypes = [
-        vp, vp, vp, vp, vp, i32, i32, i32, i32, f32, i32, vp]
+        vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, f32, i32, vp]
     lib.qkv_packed_attention_bwd.restype = i32
     lib.attention_bwd_error_string.argtypes = [i32]
     lib.attention_bwd_error_string.restype = ctypes.c_char_p

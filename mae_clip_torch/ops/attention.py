@@ -12,14 +12,23 @@ key mask, or the packed ``(B, S, 3*H*Dh)`` output of a fused qkv matmul
   versions of the four kernels, with the kernels' own semantics (masked keys
   at ``-0.7 * f32max``, normaliser floored at ``1e-30``, fp32 softmax; the
   backward recomputes P, rounds P and dS to the input type before their
-  products and zeroes dS at masked keys).
+  products and zeroes dS at masked keys), as the TPU kernels compute them.
+* ``qkv_packed_attention_lse_ref`` / ``qkv_packed_attention_bwd_lse_ref``:
+  the plain versions of kernels #1 and #3 as the training path runs them on
+  the card: the forward also gives the row log-sum-exp, and the backward
+  takes the forward's output and log-sum-exp instead of recomputing the row
+  statistics (FlashAttention-2's formulation; equal in exact arithmetic).
 * ``flash_attention`` / ``qkv_packed_attention``: the kernel wrappers, one
-  ``torch.autograd.Function`` each, as the JAX package's ``custom_vjp``s: the
-  forward saves only its inputs and the mask, the backward recomputes. On a
-  CPU tensor both directions run their plain versions; on a CUDA tensor they
-  launch the hand-written kernels of ``csrc/attention_fwd.cu`` and
-  ``csrc/attention_bwd.cu`` or raise. Each wrapper counts its kernel
-  launches in ``<wrapper>.launches`` (forward) and ``<wrapper>.bwd_launches``.
+  ``torch.autograd.Function`` each, as the JAX package's ``custom_vjp``s. On
+  a CPU tensor both directions run their plain versions, and the forward
+  saves only its inputs and the mask, as JAX's residuals are; on a CUDA
+  tensor they launch the hand-written kernels of ``csrc/attention_fwd.cu``
+  and ``csrc/attention_bwd.cu`` or raise. There the packed forward also
+  saves its output and the row log-sum-exp for kernel #3 (more than JAX's
+  residuals: the output is held anyway for the projection's backward, so it
+  costs a reference; the log-sum-exp is 4 bytes a row and head). Each
+  wrapper counts its kernel launches in ``<wrapper>.launches`` (forward) and
+  ``<wrapper>.bwd_launches``.
 * ``fused_qkv_attention`` / ``multi_head_attention``: the dispatchers the
   models call. There is no ``impl`` switch: the device of the input decides.
 
@@ -66,20 +75,32 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs.to(q.dtype), v)
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        key_valid: Optional[torch.Tensor] = None,
-                        sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Plain version of the flash kernel: q/k/v (B, H, S, Dh) -> (B, H, Sq, Dh)."""
-    scale = _scale(q.shape[-1], sm_scale)
+def _scores(q: torch.Tensor, k: torch.Tensor,
+            key_valid: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """fp32 (q . k) * scale with masked keys at MASK_VALUE."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if key_valid is not None:
         s = torch.where(key_valid[:, None, None, :] > 0, s,
                         torch.full_like(s, MASK_VALUE))
+    return s
+
+
+def _flash_fwd_ref(q, k, v, key_valid, sm_scale):
+    """(out, lse): the flash forward and its row log-sum-exp
+    m + log(max(l, 1e-30)), fp32 (B, H, Sq)."""
+    s = _scores(q, k, key_valid, _scale(q.shape[-1], sm_scale))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p, v.float()) / torch.clamp(l, min=1e-30)
-    return out.to(q.dtype)
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.matmul(p, v.float()) / l
+    return out.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        key_valid: Optional[torch.Tensor] = None,
+                        sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of the flash kernel: q/k/v (B, H, S, Dh) -> (B, H, Sq, Dh)."""
+    return _flash_fwd_ref(q, k, v, key_valid, sm_scale)[0]
 
 
 def _unpack(qkv: torch.Tensor, n_heads: int):
@@ -98,6 +119,19 @@ def qkv_packed_attention_ref(qkv: torch.Tensor,
     q, k, v = _unpack(qkv, n_heads)
     ctx = flash_attention_ref(q, k, v, key_valid, sm_scale)
     return ctx.permute(0, 2, 1, 3).reshape(b, s, three_hd // 3)
+
+
+def qkv_packed_attention_lse_ref(qkv: torch.Tensor,
+                                 key_valid: Optional[torch.Tensor],
+                                 n_heads: int,
+                                 sm_scale: Optional[float] = None):
+    """Plain version of the packed kernel on the training path: (out, lse),
+    out as ``qkv_packed_attention_ref`` gives it and lse the row
+    log-sum-exp of the masked, scaled scores, fp32 (B*H, S)."""
+    b, s, three_hd = qkv.shape
+    ctx, lse = _flash_fwd_ref(*_unpack(qkv, n_heads), key_valid, sm_scale)
+    out = ctx.permute(0, 2, 1, 3).reshape(b, s, three_hd // 3)
+    return out, lse.reshape(b * n_heads, s)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
@@ -130,6 +164,10 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _pack_grads(grads, b: int, s: int, three_hd: int) -> torch.Tensor:
+    return torch.stack(grads).permute(1, 3, 0, 2, 4).reshape(b, s, three_hd)
+
+
 def qkv_packed_attention_bwd_ref(qkv: torch.Tensor,
                                  key_valid: Optional[torch.Tensor],
                                  n_heads: int, sm_scale: Optional[float],
@@ -141,7 +179,45 @@ def qkv_packed_attention_bwd_ref(qkv: torch.Tensor,
     q, k, v = _unpack(qkv, n_heads)
     do = d_out.reshape(b, s, n_heads, d).permute(0, 2, 1, 3)
     grads = flash_attention_bwd_ref(q, k, v, key_valid, sm_scale, do)
-    return torch.stack(grads).permute(1, 3, 0, 2, 4).reshape(b, s, three_hd)
+    return _pack_grads(grads, b, s, three_hd)
+
+
+def qkv_packed_attention_bwd_lse_ref(qkv: torch.Tensor,
+                                     key_valid: Optional[torch.Tensor],
+                                     n_heads: int, sm_scale: Optional[float],
+                                     out: torch.Tensor, lse: torch.Tensor,
+                                     d_out: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel #3 as the training path runs it: d_qkv from
+    the forward's output ``out`` (B, S, H*Dh) and row log-sum-exp ``lse``
+    (B*H, S) instead of recomputed row statistics. P = exp(s - lse) in fp32
+    (uniform 1/S on a row whose keys are all masked, whose lse is
+    MASK_VALUE), delta = rowsum(dO * out) in fp32 (equal to rowsum(P * dP)
+    in exact arithmetic); the casts and masking of
+    ``qkv_packed_attention_bwd_ref``."""
+    b, s, three_hd = qkv.shape
+    d = three_hd // (3 * n_heads)
+    q, k, v = _unpack(qkv, n_heads)
+    scale = _scale(d, sm_scale)
+
+    def heads(x):
+        return x.reshape(b, s, n_heads, d).permute(0, 2, 1, 3)
+
+    lse = lse.reshape(b, n_heads, s, 1)
+    p = torch.exp(_scores(q, k, key_valid, scale) - lse)
+    p = torch.where(lse < 0.5 * MASK_VALUE, torch.full_like(p, 1.0 / s), p)
+    do = heads(d_out).to(v.dtype).float()
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), do)
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    delta = (do * heads(out).float()).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    if key_valid is not None:
+        ds = torch.where(key_valid[:, None, None, :] > 0, ds,
+                         torch.zeros_like(ds))
+    ds = ds.to(q.dtype).float()
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    return _pack_grads(grads, b, s, three_hd)
 
 
 # ---------------------------------------------------------------------------
@@ -238,35 +314,47 @@ def _launch_flash_bwd(q, k, v, mask, scale: float, d_out):
     return dq, dk, dv
 
 
-def _launch_packed(qkv, mask, n_heads: int, scale: float) -> torch.Tensor:
+def _launch_packed(qkv, mask, n_heads: int, scale: float,
+                   with_lse: bool = False):
+    """(out, lse): kernel #1, with the row log-sum-exp (B*H, S) in fp32
+    when ``with_lse`` (the training path), else None."""
     from mae_clip_torch.ops._build import load_attention
 
     lib = load_attention()
     b, s, three_hd = qkv.shape
     d = three_hd // (3 * n_heads)
     out = torch.empty((b, s, n_heads * d), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b * n_heads, s), dtype=torch.float32,
+                      device=qkv.device) if with_lse else None
     err = lib.qkv_packed_attention_fwd(
-        _ptr(qkv), _ptr(mask), _ptr(out), b, s, n_heads, d, scale,
+        _ptr(qkv), _ptr(mask), _ptr(out), _ptr(lse), b, s, n_heads, d, scale,
         _DTYPE_CODES[qkv.dtype], _stream(qkv))
     _raise_on_error(err, lib.attention_error_string, "qkv_packed_attention")
     _count(qkv_packed_attention, "launches")
-    return out
+    return out, lse
 
 
-def _launch_packed_bwd(qkv, mask, n_heads: int, scale: float,
+def _launch_packed_bwd(qkv, mask, n_heads: int, scale: float, out, lse,
                        d_out) -> torch.Tensor:
+    """Kernel #3: d_qkv from the forward's ``out`` and ``lse``."""
     from mae_clip_torch.ops._build import load_attention_bwd
 
     lib = load_attention_bwd()
     b, s, three_hd = qkv.shape
     d = three_hd // (3 * n_heads)
+    if (out.shape != (b, s, three_hd // 3) or lse.shape != (b * n_heads, s)
+            or out.dtype != qkv.dtype or lse.dtype != torch.float32
+            or not (out.is_contiguous() and lse.is_contiguous())):
+        raise ValueError("qkv_packed_attention backward: out and lse must be "
+                         "the forward's, contiguous")
     d_out = d_out.contiguous()
     d_qkv = torch.empty_like(qkv)
     scratch = torch.empty(3 * b * n_heads * s, dtype=torch.float32,
                           device=qkv.device)
     err = lib.qkv_packed_attention_bwd(
-        _ptr(qkv), _ptr(mask), _ptr(d_out), _ptr(d_qkv), _ptr(scratch),
-        b, s, n_heads, d, scale, _DTYPE_CODES[qkv.dtype], _stream(qkv))
+        _ptr(qkv), _ptr(mask), _ptr(out), _ptr(lse), _ptr(d_out),
+        _ptr(d_qkv), _ptr(scratch), b, s, n_heads, d, scale,
+        _DTYPE_CODES[qkv.dtype], _stream(qkv))
     _raise_on_error(err, lib.attention_bwd_error_string,
                     "qkv_packed_attention backward")
     _count(qkv_packed_attention, "bwd_launches")
@@ -296,25 +384,30 @@ class _FlashAttention(torch.autograd.Function):
 
 
 class _PackedAttention(torch.autograd.Function):
-    """Kernels #1 (forward) and #3 (backward); plain versions on the CPU."""
+    """Kernels #1 (forward) and #3 (backward); plain versions on the CPU.
+    On the card the forward writes the row log-sum-exp when qkv needs a
+    gradient and saves it with its output for #3."""
 
     @staticmethod
     def forward(ctx, qkv, key_valid, n_heads, scale):
-        ctx.save_for_backward(qkv, key_valid)
         ctx.n_heads, ctx.scale = n_heads, scale
         if qkv.device.type == "cpu":
+            ctx.save_for_backward(qkv, key_valid)
             return qkv_packed_attention_ref(qkv, key_valid, n_heads, scale)
-        return _launch_packed(qkv, key_valid, n_heads, scale)
+        out, lse = _launch_packed(qkv, key_valid, n_heads, scale,
+                                  with_lse=ctx.needs_input_grad[0])
+        ctx.save_for_backward(qkv, key_valid, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, d_out):
-        qkv, key_valid = ctx.saved_tensors
+        qkv, key_valid, *saved = ctx.saved_tensors
         if qkv.device.type == "cpu":
             d_qkv = qkv_packed_attention_bwd_ref(qkv, key_valid, ctx.n_heads,
                                                  ctx.scale, d_out)
         else:
             d_qkv = _launch_packed_bwd(qkv, key_valid, ctx.n_heads,
-                                       ctx.scale, d_out)
+                                       ctx.scale, *saved, d_out)
         return d_qkv, None, None, None
 
 

@@ -148,11 +148,13 @@ def _attention(qp, kvp, n_heads: int):
     return _merge(ctx), p
 
 
-def _attention_bwd(qp, kvp, p, dctx, n_heads: int):
+def _attention_bwd(qp, kvp, p, dctx, n_heads: int, ctx=None):
     """dqp (B, Sq, D) and dkvp (B, Sk, 2D), fp32, for the context gradient
     ``dctx`` in the compute dtype: dV = round(P)^T dO, dP = dO V^T,
     dS = round(P * (dP - rowsum(P * dP))), dq = dS K * scale,
-    dk = dS^T Q * scale."""
+    dk = dS^T Q * scale. Given the forward's ``ctx``, rowsum(P * dP) is
+    taken as rowsum(dO * ctx) instead, as kernel #7 takes it (equal in
+    exact arithmetic; ctx is rounded to the compute dtype)."""
     d = qp.shape[-1]
     scale = 1.0 / float(d // n_heads) ** 0.5
     q = _heads(qp, n_heads)
@@ -160,7 +162,10 @@ def _attention_bwd(qp, kvp, p, dctx, n_heads: int):
     do = _heads(dctx, n_heads)
     dv = torch.matmul(p.to(qp.dtype).float().transpose(-1, -2), do)
     dp = torch.matmul(do, v.transpose(-1, -2))
-    delta = (p * dp).sum(-1, keepdim=True)
+    if ctx is None:
+        delta = (p * dp).sum(-1, keepdim=True)
+    else:
+        delta = (do * _heads(ctx, n_heads)).sum(-1, keepdim=True)
     ds = (p * (dp - delta)).to(qp.dtype).float()
     dq = torch.matmul(ds, k) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q) * scale
@@ -206,9 +211,12 @@ def fused_block_stack_ref(q0: torch.Tensor, kv: torch.Tensor, w: Weights,
 
 def fused_block_stack_bwd_ref(qstack: torch.Tensor, kv: torch.Tensor,
                               w: Weights, dout: torch.Tensor, n_heads: int,
-                              gelu: str = "tanh", cross: bool = True):
+                              gelu: str = "tanh", cross: bool = True,
+                              delta_from_ctx: bool = False):
     """Plain version of kernel #7: (dq0, dkv, dw) for the output gradient
-    ``dout``, walking the blocks in reverse from their saved inputs."""
+    ``dout``, walking the blocks in reverse from their saved inputs. The
+    attention backward's row sum is the TPU kernel's rowsum(P * dP), or
+    with ``delta_from_ctx`` the kernel's own rowsum(dO * ctx)."""
     n_blocks, dt = w["wq"].shape[0], qstack.dtype
     dq, dkv, dws = dout, None, [None] * n_blocks
     for l in reversed(range(n_blocks)):
@@ -220,7 +228,8 @@ def fused_block_stack_bwd_ref(qstack: torch.Tensor, kv: torch.Tensor,
         dh2 = _mm_back(da1.to(dt), wl["wfc1"])
         dx1 = dqo + _ln_bwd(dh2, f["xhat2"], f["rstd2"], wl["ln2_g"])
         dctx = _mm_back(dx1.to(dt), wl["wproj"]).to(dt)
-        dqp, dkvp = _attention_bwd(f["qp"], f["kvp"], f["p"], dctx, n_heads)
+        dqp, dkvp = _attention_bwd(f["qp"], f["kvp"], f["p"], dctx, n_heads,
+                                   f["ctx"] if delta_from_ctx else None)
         dh = _mm_back(dqp.to(dt), wl["wq"])
         dkvh = _mm_back(dkvp.to(dt), wl["wkv"])
         if cross:

@@ -148,30 +148,110 @@ def test_flash_plain_backward_matches_jax(jx, b, h, sq, sk, d, masked):
                                    err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("b,s,h,d,masked", [
+PACKED_BWD_CASES = [
     (2, 13, 2, 16, True),    # S not a multiple of 8, masked (no full row)
     (1, 300, 1, 8, False),   # long sequence
-])
-def test_packed_plain_backward_matches_jax(jx, b, s, h, d, masked):
-    """qkv_packed_attention_bwd_ref == jax.vjp of the packed Pallas kernel
-    (interpret mode), which runs _qkv_bwd_kernel; d_qkv in packed columns."""
+]
+
+
+@pytest.fixture(scope="module")
+def packed_vjp(jx):
+    """``case -> (qkv, d_out, key_valid, d_qkv)``: jax.vjp of the packed
+    Pallas kernel (interpret mode), which runs _qkv_bwd_kernel, on seeded
+    inputs; computed once per case for every plain backward held against
+    it."""
     import jax
 
     jax_attn, jnp = jx
-    rng = np.random.default_rng(12)
-    qkv = rng.normal(size=(b, s, 3 * h * d)).astype(np.float32)
-    g = rng.normal(size=(b, s, h * d)).astype(np.float32)
-    kv = None
-    if masked:
-        kv = (rng.random((b, s)) > 0.25).astype(np.float32)
-        kv[:, 0] = 1                                  # no fully masked row
-    jkv = None if kv is None else jnp.asarray(kv)
-    _, vjp = jax.vjp(lambda x: jax_attn.qkv_packed_attention(
-        x, jkv, h, 1.0 / d ** 0.5, True), jnp.asarray(qkv))
-    (want,) = vjp(jnp.asarray(g))
+    cache = {}
+
+    def get(b, s, h, d, masked):
+        if (b, s, h, d, masked) not in cache:
+            rng = np.random.default_rng(12)
+            qkv = rng.normal(size=(b, s, 3 * h * d)).astype(np.float32)
+            g = rng.normal(size=(b, s, h * d)).astype(np.float32)
+            kv = None
+            if masked:
+                kv = (rng.random((b, s)) > 0.25).astype(np.float32)
+                kv[:, 0] = 1                          # no fully masked row
+            jkv = None if kv is None else jnp.asarray(kv)
+            _, vjp = jax.vjp(lambda x: jax_attn.qkv_packed_attention(
+                x, jkv, h, 1.0 / d ** 0.5, True), jnp.asarray(qkv))
+            (want,) = vjp(jnp.asarray(g))
+            cache[b, s, h, d, masked] = (qkv, g, kv, np.asarray(want))
+        return cache[b, s, h, d, masked]
+
+    return get
+
+
+@pytest.mark.parametrize("b,s,h,d,masked", PACKED_BWD_CASES)
+def test_packed_plain_backward_matches_jax(packed_vjp, b, s, h, d, masked):
+    """qkv_packed_attention_bwd_ref == jax.vjp of the packed Pallas kernel
+    (interpret mode), which runs _qkv_bwd_kernel; d_qkv in packed columns."""
+    qkv, g, kv, want = packed_vjp(b, s, h, d, masked)
     got = A.qkv_packed_attention_bwd_ref(*_torch(qkv, kv), h, None,
                                          torch.from_numpy(g))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("b,s,h,d,masked", PACKED_BWD_CASES)
+def test_packed_plain_lse_backward_matches_jax(packed_vjp, b, s, h, d,
+                                               masked):
+    """The plain version of kernel #3 as the card runs it (from the plain
+    forward's out and lse, delta = rowsum(dO * out)) == jax.vjp of the
+    packed Pallas kernel, which recomputes the statistics."""
+    qkv, g, kv, want = packed_vjp(b, s, h, d, masked)
+    qkv_t, kv_t = _torch(qkv, kv)
+    out, lse = A.qkv_packed_attention_lse_ref(qkv_t, kv_t, h)
+    got = A.qkv_packed_attention_bwd_lse_ref(qkv_t, kv_t, h, None, out, lse,
+                                             torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def _lse_case(mask: str):
+    rng = np.random.default_rng(15)
+    b, s, h, d = 3, 13, 2, 16
+    qkv = torch.from_numpy(rng.normal(size=(b, s, 3 * h * d)).astype(
+        np.float32))
+    g = torch.from_numpy(rng.normal(size=(b, s, h * d)).astype(np.float32))
+    kv = None
+    if mask != "none":
+        kv = torch.from_numpy((rng.random((b, s)) > 0.3).astype(np.float32))
+        kv[:, 0] = 1
+        if mask == "fully":
+            kv[1] = 0                                 # every key masked
+    return qkv, g, kv, h, d
+
+
+@pytest.mark.parametrize("mask", ["none", "padding", "fully"])
+def test_plain_lse_forward_matches_plain_forward(mask):
+    """qkv_packed_attention_lse_ref: out == qkv_packed_attention_ref
+    exactly, and lse (B*H, S) == torch.logsumexp of the masked, scaled
+    scores (MASK_VALUE on a row whose keys are all masked)."""
+    qkv, _, kv, h, d = _lse_case(mask)
+    out, lse = A.qkv_packed_attention_lse_ref(qkv, kv, h)
+    torch.testing.assert_close(out, A.qkv_packed_attention_ref(qkv, kv, h),
+                               rtol=0, atol=0)
+    q, k, _ = A._unpack(qkv, h)
+    scores = torch.matmul(q, k.transpose(-1, -2)) / d ** 0.5
+    if kv is not None:
+        scores = scores.masked_fill(kv[:, None, None, :] == 0, A.MASK_VALUE)
+    want = torch.logsumexp(scores, dim=-1).reshape(lse.shape)
+    assert lse.shape == (qkv.shape[0] * h, qkv.shape[1])
+    assert lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("mask", ["none", "padding", "fully"])
+def test_plain_lse_backward_matches_recompute_backward(mask):
+    """The two plain backwards of kernel #3 agree (fp32): from the saved
+    out and lse, and recomputing the statistics, a fully masked row
+    included (uniform P, no dq or dk)."""
+    qkv, g, kv, h, _ = _lse_case(mask)
+    out, lse = A.qkv_packed_attention_lse_ref(qkv, kv, h)
+    got = A.qkv_packed_attention_bwd_lse_ref(qkv, kv, h, None, out, lse, g)
+    want = A.qkv_packed_attention_bwd_ref(qkv, kv, h, None, g)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -217,10 +297,8 @@ def test_fully_masked_row_follows_jax_xla(jx):
     kv = np.ones((b, s), np.float32)
     kv[0] = 0                                         # every key masked
     kv[1, 7:] = 0
-    _, vjp = jax.vjp(lambda x, y, z: jax_attn.attention_xla(
+    want_out, vjp = jax.vjp(lambda x, y, z: jax_attn.attention_xla(
         x, y, z, jnp.asarray(kv > 0)), *map(jnp.asarray, (q, k, v)))
-    want_out = jax_attn.attention_xla(*map(jnp.asarray, (q, k, v)),
-                                      jnp.asarray(kv > 0))
     want = vjp(jnp.asarray(g))
     xs = [t.requires_grad_() for t in _torch(q, k, v)]
     out = A.flash_attention(*xs, torch.from_numpy(kv))
@@ -345,7 +423,7 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype):
 
 
 @pytest.mark.cuda
-def test_kernel_backward_is_not_ported(cuda):
+def test_kernel_backward_launches_once_with_finite_grads(cuda):
     """The backward kernels once were not ported and a backward pass through
     a kernel wrapper raised; now it launches backward kernel #3 / #4 once
     per call and returns finite gradients of the inputs' shapes."""
@@ -459,3 +537,63 @@ def test_flash_kernels_on_decoder_split_views_on_card(cuda, dtype):
            d_kv[:, :, 1].transpose(1, 2))
     for x, y in zip(got, want):
         _close_to_plain(x, y, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,mask", [(6, 50, 3, None),
+                                        (4, 197, 2, "padding"),
+                                        (6, 50, 3, "fully"),
+                                        (4, 197, 2, "fully")])
+def test_packed_lse_kernels_match_plain_on_card(cuda, dtype, b, s, h, mask):
+    """Kernel #1 writing the log-sum-exp == the plain (out, lse) forward,
+    and kernel #3 from that out and lse == the plain backward that takes
+    them, at S <= 64 (one backward kernel) and above (two), a row whose keys
+    are all masked included; each call adds exactly one to its launch
+    count."""
+    _check_packed_lse_kernels(cuda, dtype, b, s, h, mask, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h", [(6, 50, 4), (4, 197, 4)])
+def test_packed_lse_kernels_match_plain_on_card_head_dim_64(cuda, dtype, b, s,
+                                                            h):
+    """The same at head dim 64 (a ViT-B head), with a padding mask, where
+    the bf16 bodies are their own template instances (and the one-kernel
+    backward at S <= 64 lays out its shared memory differently); #3 also
+    == the plain backward that recomputes the statistics."""
+    d_qkv, (qkv, kv, g) = _check_packed_lse_kernels(cuda, dtype, b, s, h,
+                                                    "padding", 64)
+    _close_to_plain(d_qkv, A.qkv_packed_attention_bwd_ref(
+        qkv.float(), kv, h, None, g.float()), dtype)
+
+
+def _check_packed_lse_kernels(cuda, dtype, b, s, h, mask, d):
+    """#1 with lse and #3 from it against the plain versions that take
+    them; returns #3's d_qkv and its (qkv, mask, d_out) inputs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(6)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(cuda, dtype)
+    g = torch.randn(b, s, h * d, generator=gen).to(cuda, dtype)
+    kv = None
+    if mask is not None:
+        kv = (torch.rand(b, s, generator=gen) > 0.2).float().to(cuda)
+        kv[:, 0] = 1
+        if mask == "fully":
+            kv[1] = 0
+    before = (A.qkv_packed_attention.launches,
+              A.qkv_packed_attention.bwd_launches)
+    out, lse = A._launch_packed(qkv, kv, h, d ** -0.5, with_lse=True)
+    d_qkv = A._launch_packed_bwd(qkv, kv, h, d ** -0.5, out, lse, g)
+    torch.cuda.synchronize()
+    assert (A.qkv_packed_attention.launches,
+            A.qkv_packed_attention.bwd_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    want_out, want_lse = A.qkv_packed_attention_lse_ref(qkv.float(), kv, h)
+    _close_to_plain(out, want_out, dtype)
+    _close_to_plain(lse, want_lse, torch.float32)
+    want = A.qkv_packed_attention_bwd_lse_ref(qkv.float(), kv, h, None,
+                                              out.float(), lse, g.float())
+    _close_to_plain(d_qkv, want, dtype)
+    return d_qkv, (qkv, kv, g)

@@ -94,6 +94,23 @@ def test_explicit_backward_matches_autograd(shape, gelu):
             torch.testing.assert_close(dw[k], g, **tol, msg=k)
 
 
+@pytest.mark.parametrize("shape", SMALL, ids=["cross", "self"])
+def test_row_sum_from_ctx_matches_row_sum_from_p(shape):
+    """The explicit backward with the attention's row sum taken as
+    rowsum(dO * ctx), as kernel #7's bf16 body takes it, against the TPU's
+    rowsum(P * dP): equal in exact arithmetic, fp32 atol 1e-5 / rtol 1e-4."""
+    q0, kv, w, dout = _inputs(shape, 1)
+    cross, h = shape[-1], shape[4]
+    qstack = BK.fused_block_stack_ref(q0, kv, w, h, "tanh", cross)[1]
+    want = BK.fused_block_stack_bwd_ref(qstack, kv, w, dout, h, "tanh", cross)
+    got = BK.fused_block_stack_bwd_ref(qstack, kv, w, dout, h, "tanh", cross,
+                                       delta_from_ctx=True)
+    tol = dict(atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got[:2], want[:2], **tol)
+    for k in BK.W_KEYS:
+        torch.testing.assert_close(got[2][k], want[2][k], **tol, msg=k)
+
+
 @pytest.mark.parametrize("fn", ["fused_block_stack",
                                 "fused_block_stack_fwd_plain_bwd"])
 def test_cpu_wrappers_take_the_plain_versions(fn):
