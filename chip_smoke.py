@@ -5,9 +5,11 @@
 
 It builds the port's CUDA kernels from ``mae_clip_torch/csrc`` (one nvcc per
 source, started together) and holds each kernel, forward and backward,
-against its plain PyTorch version on the card (the packed-qkv pair #1/#3
-also as training runs them: #1 writing the row log-sum-exp, #3 reading it
-and the output), and the in-step augmentation against the CPU's. Then it drives the port's three paths through their entry
+against its plain PyTorch version on the card (the attention pairs #1/#3
+and #2/#4 also as training runs them: the forward writing the row
+log-sum-exp, the backward reading it and the output; heads up to 256),
+and the in-step augmentation against the CPU's. Then it drives the port's
+three paths through their entry
 points, each with the kernels' launch counts set to 0 just before and read
 just after:
 
@@ -163,10 +165,14 @@ def check_kernels() -> dict:
     # Packed qkv: the ViT-S/16 flagship block (3 heads of 128, S=197) at
     # B=64, the training step's masked encoder pass (CLS + 49 visible
     # tokens) at B=256 with no mask, the MAE-paper decoder (CLS + 196
-    # tokens, 2 heads of 128) at B=256, and a padding mask at S=50.
-    for b, s, h, masked in ((64, 197, 3, False), (256, 50, 3, False),
-                            (256, 197, 2, False), (8, 50, 3, True)):
-        qkv = torch.randn(b, s, 3 * h * 128, generator=gen).to(dev)
+    # tokens, 2 heads of 128) at B=256, a padding mask at S=50, and heads
+    # of 256 (the scalar bodies) at S=50 and S=197.
+    for b, s, h, masked, d in ((64, 197, 3, False, 128),
+                               (256, 50, 3, False, 128),
+                               (256, 197, 2, False, 128),
+                               (8, 50, 3, True, 128), (8, 50, 2, True, 256),
+                               (4, 197, 3, True, 256)):
+        qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(dev)
         kv = _padding_mask(gen, b, s, dev) if masked else None
         run("qkv_packed_attention",
             lambda x, m, h=h: A.qkv_packed_attention(x, m, h),
@@ -177,7 +183,8 @@ def check_kernels() -> dict:
     # mask) with the head split as a strided view of a linear output, the
     # CrossMAE decoder's cross-attention at the training step's B=256 (Sq=147,
     # Sk=50, 2x128, no mask) in its own layout, and S=300 for several key
-    # tiles.
+    # tiles. Each case also as training runs #2, writing the row
+    # log-sum-exp: out and lse against the plain (out, lse) forward.
     def flash_case(b, h, sq, sk, masked, layout, d=128):
         kv = _padding_mask(gen, b, sk, dev) if masked else None
         if layout == "decoder":
@@ -200,6 +207,24 @@ def check_kernels() -> dict:
                 return [x.to(dt).transpose(1, 2) if strided else x.to(dt)
                         for x in xs] + [kv]
         run("flash_attention", A.flash_attention, A.flash_attention_ref, make)
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, _ = make(dt)
+            out, lse = A._launch_flash(
+                q, k, v, A._mask_arg(kv, b, sk, q.device), d ** -0.5,
+                with_lse=True)
+            torch.cuda.synchronize()
+            want, want_lse = A.flash_attention_lse_ref(q.float(), k.float(),
+                                                       v.float(), kv)
+            tol = FP32_TOL if dt == torch.float32 else dict(atol=BF16_ATOL)
+            label = (f"q ({b},{h},{sq},{d}) k/v ({b},{h},{sk},{d}) {layout}"
+                     f"{' masked' if masked else ''}")
+            err = _close(f"flash_attention lse path {str(dt)[6:]} {label}",
+                         out, want, **tol)
+            lse_err = _close(f"flash_attention lse {str(dt)[6:]} {label}",
+                             lse, want_lse, **FP32_TOL)
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            log(f"  flash_attention with lse {str(dt)[6:]} {label}: max abs "
+                f"err out {err:.3e}, lse {lse_err:.3e}")
 
     # #1 as the training path runs it, writing the row log-sum-exp, at the
     # two main shapes (the CLIP/MAE encoder, the MAE-paper decoder), with a
@@ -209,7 +234,8 @@ def check_kernels() -> dict:
     for b, s, h, masked, d in ((256, 50, 3, False, 128),
                                (256, 197, 2, False, 128),
                                (8, 197, 2, True, 128), (16, 50, 4, True, 64),
-                               (8, 197, 4, True, 64)):
+                               (8, 197, 4, True, 64), (8, 50, 2, True, 256),
+                               (4, 197, 3, True, 256)):
         qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(dev)
         kv = _padding_mask(gen, b, s, dev) if masked else None
         for dt in (torch.float32, torch.bfloat16):
@@ -229,15 +255,29 @@ def check_kernels() -> dict:
                 f"({b},{s},{3 * h * d}){' masked' if masked else ''}: "
                 f"max abs err out {err:.3e}, lse {lse_err:.3e}")
 
-    flash_case(16, 6, 64, 64, True, "strided")
-    flash_case(16, 6, 64, 64, True, "plain")
-    flash_case(256, 2, 147, 50, False, "decoder")
-    flash_case(2, 2, 300, 300, True, "plain")
-    # Other head dims: 64 (tensor-core body) and 80 (the scalar body, which
-    # also serves fp32 and unaligned strides).
-    flash_case(4, 2, 77, 77, True, "plain", d=64)
-    flash_case(2, 3, 33, 40, True, "plain", d=80)
+    for case in FLASH_CASES:
+        flash_case(*case)
     return worst
+
+
+# (B, H, Sq, Sk, masked, layout, Dh) of the flash checks, forward and
+# backward: DistilBERT at serving (strided head views and plain), the
+# CrossMAE decoder (147 queries on 50 keys, its split views; one key tile
+# and many query tiles: #2's and #4's streaming bodies), S=300 (several
+# tiles each way), Sk <= 64 < Sq with a ragged last stage, and other head
+# dims: 64 (tensor-core bodies), 80 (the scalar bodies, which also serve
+# fp32 and unaligned strides) and 256 (the scalar bodies' wide instances;
+# DistilBERT with 3 heads).
+FLASH_CASES = ((16, 6, 64, 64, True, "strided", 128),
+               (16, 6, 64, 64, True, "plain", 128),
+               (256, 2, 147, 50, False, "decoder", 128),
+               (8, 2, 147, 50, True, "decoder", 64),
+               (4, 2, 70, 13, True, "plain", 128),
+               (2, 2, 300, 300, True, "plain", 128),
+               (4, 2, 77, 77, True, "plain", 64),
+               (2, 3, 33, 40, True, "plain", 80),
+               (16, 3, 64, 64, True, "strided", 256),
+               (4, 2, 147, 50, True, "decoder", 256))
 
 
 def _bwd_close(name: str, got, want, dtype) -> float:
@@ -272,16 +312,19 @@ def check_backward_kernels(worst: dict) -> None:
 
     # Packed (kernel #3), from the forward's out and lse: the step's encoder
     # shape, the MAE-paper decoder's (2 heads, S=197: several query and key
-    # tiles), a padding mask at S=50, S=197 through autograd, and head dim
-    # 64 with a padding mask at S <= 64 (one kernel) and above (two). Held
-    # against the plain backward that recomputes the statistics (as the TPU
-    # kernel does) and against the one that takes the kernel's out and lse.
+    # tiles), a padding mask at S=50, S=197 through autograd, and head dims
+    # 64 and 256 with a padding mask at S <= 64 (one kernel at 64) and above
+    # (two). Held against the plain backward that recomputes the statistics
+    # (as the TPU kernel does) and against the one that takes the kernel's
+    # out and lse.
     for b, s, h, masked, autograd, d in ((256, 50, 3, False, False, 128),
                                          (256, 197, 2, False, False, 128),
                                          (8, 50, 3, True, False, 128),
                                          (16, 197, 3, True, True, 128),
                                          (16, 50, 4, True, False, 64),
-                                         (8, 197, 4, True, False, 64)):
+                                         (8, 197, 4, True, False, 64),
+                                         (8, 50, 2, True, False, 256),
+                                         (4, 197, 3, True, True, 256)):
         qkv0, g0 = randn(b, s, 3 * h * d), randn(b, s, h * d)
         kv = _padding_mask(gen, b, s, dev) if masked else None
         for dt in (torch.float32, torch.bfloat16):
@@ -307,9 +350,11 @@ def check_backward_kernels(worst: dict) -> None:
             check("qkv_packed_attention_bwd", label + " vs the lse plain",
                   got, want, dt)
 
-    # Flash (kernel #4): the decoder's shape with its strided head views,
-    # through autograd; DistilBERT's with a mask and strided views; S=300
-    # with a fully masked row; head dims 64 and 80.
+    # Flash (kernel #4) from #2's output and lse, at every flash case of
+    # the forward checks (FLASH_CASES), the decoder's through autograd; the
+    # masked cases with more than 64 queries also with row 0's keys all
+    # masked. Held against the plain backward that recomputes the
+    # statistics and against the one that takes the output and lse.
     def flash_inputs(dt, b, h, sq, sk, d, layout):
         if layout == "decoder":  # q of (B, Sq, H, Dh); k/v of (B, Sk, 2, H, Dh)
             q = randn(b, sq, h, d).to(dt).transpose(1, 2)
@@ -320,34 +365,33 @@ def check_backward_kernels(worst: dict) -> None:
                          for n in (sq, sk, sk))
         return tuple(randn(b, h, n, d).to(dt) for n in (sq, sk, sk))
 
-    for b, h, sq, sk, d, mask_kind, layout in (
-            (256, 2, 147, 50, 128, None, "decoder"),
-            (16, 6, 64, 64, 128, "padding", "strided"),
-            (2, 2, 300, 300, 128, "fully", "plain"),
-            (4, 2, 77, 77, 64, "padding", "plain"),
-            (2, 3, 33, 40, 80, "padding", "plain")):
-        kv = None
-        if mask_kind is not None:
-            kv = _padding_mask(gen, b, sk, dev)
-            if mask_kind == "fully":
-                kv[0] = 0
+    for b, h, sq, sk, masked, layout, d in FLASH_CASES:
+        kv, kind = None, ""
+        if masked:
+            kv, kind = _padding_mask(gen, b, sk, dev), " padding mask"
+            if sq > 64:
+                kv[0], kind = 0, " padding mask, row 0 fully masked"
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(dt, b, h, sq, sk, d, layout)
             g = randn(b, sq, h, d).to(dt).transpose(1, 2)
+            mask = A._mask_arg(kv, b, sk, q.device)
+            out, lse = A._launch_flash(q, k, v, mask, d ** -0.5,
+                                       with_lse=True)
             if layout == "decoder":
                 xs = [t.detach().requires_grad_() for t in (q, k, v)]
                 got = torch.autograd.grad(A.flash_attention(*xs, kv), xs, g)
             else:
-                got = A._launch_flash_bwd(
-                    q, k, v, A._mask_arg(kv, b, sk, q.device), d ** -0.5, g)
+                got = A._launch_flash_bwd(q, k, v, mask, d ** -0.5, out, lse,
+                                          g)
             torch.cuda.synchronize()
-            want = A.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
-                                             kv, None, g.float())
-            check("flash_attention_bwd",
-                  f"q ({b},{h},{sq},{d}) k/v ({b},{h},{sk},{d}) {layout}"
-                  f"{'' if mask_kind is None else ' ' + mask_kind + ' mask'}"
-                  f"{' autograd' if layout == 'decoder' else ''}",
-                  got, want, dt)
+            plain = [t.float() for t in (q, k, v)]
+            label = (f"q ({b},{h},{sq},{d}) k/v ({b},{h},{sk},{d}) {layout}"
+                     f"{kind}{' autograd' if layout == 'decoder' else ''}")
+            check("flash_attention_bwd", label, got,
+                  A.flash_attention_bwd_ref(*plain, kv, None, g.float()), dt)
+            check("flash_attention_bwd", label + " vs the lse plain", got,
+                  A.flash_attention_bwd_lse_ref(*plain, kv, None, out.float(),
+                                                lse, g.float()), dt)
 
 
 # The MAE-pretrain step's masked patch embedding: (B, N, Din) patches,
@@ -421,7 +465,10 @@ STACK_CHECKS = (
     ((64, 197, 197, 384, 3, 1536, 12, False), (torch.bfloat16,)),
     ((16, 197, 197, 384, 3, 1536, 2, False), (torch.float32,)),
     ((32, 147, 50, 256, 2, 1024, 2, True), (torch.float32, torch.bfloat16)),
-    ((2, 9, 5, 128, 1, 256, 2, True), (torch.float32, torch.bfloat16)))
+    ((2, 9, 5, 128, 1, 256, 2, True), (torch.float32, torch.bfloat16)),
+    # Heads of 256, self and cross (the attention bodies' wide instances).
+    ((8, 50, 50, 512, 2, 2048, 2, False), (torch.float32, torch.bfloat16)),
+    ((8, 147, 50, 512, 2, 2048, 2, True), (torch.float32, torch.bfloat16)))
 STACK_FP32_TOL = 1e-4
 
 
@@ -675,6 +722,16 @@ def time_serving_kernels() -> dict:
         lambda: A.flash_attention_ref(q, k, v, kv),
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask),
         bound, by)
+    # The same as a training step of the text tower would run it, writing
+    # the row log-sum-exp (not on the serving path).
+    mask = A._mask_arg(kv, b, s, q.device)
+    out["flash_attention_lse"] = _timed(
+        f"q/k/v ({b},{h},{s},{d}) bf16, padding mask, writing lse",
+        lambda: A._launch_flash(q, k, v, mask, d ** -0.5, with_lse=True),
+        lambda: A.flash_attention_lse_ref(q, k, v, kv),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask),
+        *_bound_ms(4 * b * h * s * d * elt + kv.numel() * 4 + b * h * s * 4,
+                   4 * b * h * s * s * d, dt))
     _log_times(out)
     return out
 
@@ -736,8 +793,8 @@ def _sdpa_fwd_bwd(q, k, v, g):
     return (lambda: torch.autograd.grad(fwd(), (q, k, v), g), fwd)
 
 
-def _time_packed(qkv, g, h: int, repeats: int) -> dict:
-    """#1 and #3 on qkv (B, S, 3*H*128) and d_out g, bf16, no mask, as the
+def _time_packed(qkv, g, h: int, repeats: int, d: int = 128) -> dict:
+    """#1 and #3 on qkv (B, S, 3*H*Dh) and d_out g, bf16, no mask, as the
     training path runs them: #1 writes the row log-sum-exp, #3 reads it and
     the forward's output. #1's bound counts the log-sum-exp, an output the
     backward needs. #3's bound counts only what d_qkv needs (qkv and d_out
@@ -749,7 +806,6 @@ def _time_packed(qkv, g, h: int, repeats: int) -> dict:
     from mae_clip_torch.ops import attention as A
 
     b, s, _ = qkv.shape
-    d = 128
     scale = d ** -0.5
     q, k, v = A._unpack(qkv, h)
     g4 = g.view(b, s, h, d).transpose(1, 2)
@@ -787,10 +843,6 @@ def time_training_kernels() -> dict:
     cross-attention, q (256, 2, 147, 128) and k/v (256, 2, 50, 128). Each
     kernel is timed 7 times (median and spread), with the SM clock read
     before and after."""
-    import torch.nn.functional as F
-
-    from mae_clip_torch.ops import attention as A
-
     dev, dt = DEVICE, torch.bfloat16
     gen = torch.Generator().manual_seed(4)
     out = {}
@@ -800,28 +852,80 @@ def time_training_kernels() -> dict:
     qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(dev, dt)
     g = torch.randn(b, s, h * d, generator=gen).to(dev, dt)
     out.update(_time_packed(qkv, g, h, repeats=7))
-    elt, scale = qkv.element_size(), d ** -0.5
 
     b, h, sq, sk = 256, 2, 147, 50
     q = torch.randn(b, sq, h, d, generator=gen).to(dev, dt).transpose(1, 2)
     kv = torch.randn(b, sk, 2, h, d, generator=gen).to(dev, dt)
     k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
     g = torch.randn(b, sq, h, d, generator=gen).to(dev, dt).transpose(1, 2)
+    out.update(_time_flash(q, k, v, g, "strided head views, no mask", 7))
+    log(f"  SM clock, max SM clock after: {clock_line()}")
+    _log_times(out)
+    return out
+
+
+def _time_flash(q, k, v, g, what: str, repeats: int) -> dict:
+    """#2 and #4 on q (B, H, Sq, Dh), k/v (B, H, Sk, Dh) and d_out g, bf16,
+    no mask, as the training path runs them: #2 writes the row
+    log-sum-exp (``ms``; without it: the ``flash_attention_no_lse`` entry,
+    as serving runs it), #4 reads it and #2's output. #2's bound counts the
+    lse, an output the backward needs. #4's bound counts only what dq, dk
+    and dv need (q, k, v and d_out read, dq, dk, dv written); its reads of
+    the output and lse are this design's choice (``design_bound_ms``). #4's
+    operations are its five products."""
+    import torch.nn.functional as F
+
+    from mae_clip_torch.ops import attention as A
+
+    b, h, sq, d = q.shape
+    sk, dt, elt = k.shape[2], q.dtype, q.element_size()
+    scale = d ** -0.5
+    lse_bytes = b * h * sq * 4
+    o, lse = A._launch_flash(q, k, v, None, scale, with_lse=True)
     flops = 2 * b * h * sq * sk * d
     moved = (q.numel() + k.numel() + v.numel()) * elt
-    shape = (f"q ({b},{h},{sq},{d}) k/v ({b},{h},{sk},{d}) bf16, strided "
-             f"head views, no mask")
-    out["flash_attention"] = _timed(
-        shape, lambda: A.flash_attention(q, k, v),
-        lambda: A.flash_attention_ref(q, k, v),
-        lambda: F.scaled_dot_product_attention(q, k, v),
-        *_bound_ms(moved + q.numel() * elt, 2 * flops, dt), repeats=7)
-    out["flash_attention_bwd"] = _timed(
-        shape, lambda: A._launch_flash_bwd(q, k, v, None, scale, g),
-        lambda: A.flash_attention_bwd_ref(q, k, v, None, scale, g),
-        _sdpa_fwd_bwd(q, k, v, g),
-        *_bound_ms(2 * moved + q.numel() * elt, 5 * flops, dt), repeats=7)
-    log(f"  SM clock, max SM clock after: {clock_line()}")
+    shape = f"q ({b},{h},{sq},{d}) k/v ({b},{h},{sk},{d}) bf16, {what}"
+    times = {
+        "flash_attention": _timed(
+            shape + ", writing lse",
+            lambda: A._launch_flash(q, k, v, None, scale, with_lse=True),
+            lambda: A.flash_attention_lse_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v),
+            *_bound_ms(moved + q.numel() * elt + lse_bytes, 2 * flops, dt),
+            repeats=repeats),
+        "flash_attention_no_lse": _timed(
+            shape, lambda: A.flash_attention(q, k, v),
+            lambda: A.flash_attention_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v),
+            *_bound_ms(moved + q.numel() * elt, 2 * flops, dt),
+            repeats=repeats),
+        "flash_attention_bwd": _timed(
+            shape + ", reading out and lse",
+            lambda: A._launch_flash_bwd(q, k, v, None, scale, o, lse, g),
+            lambda: A.flash_attention_bwd_lse_ref(q, k, v, None, scale, o,
+                                                  lse, g),
+            _sdpa_fwd_bwd(q, k, v, g),
+            *_bound_ms(2 * moved + q.numel() * elt, 5 * flops, dt),
+            repeats=repeats)}
+    times["flash_attention_bwd"]["design_bound_ms"] = _bound_ms(
+        2 * moved + 2 * q.numel() * elt + lse_bytes, 5 * flops, dt)[0]
+    return times
+
+
+def time_wide_heads() -> dict:
+    """The attention kernels at heads of 256 (their scalar bodies), bf16,
+    no mask: #2/#4 at DistilBERT's serving micro-batch with 3 heads of 256,
+    q/k/v (16, 3, 64, 256), and #1/#3 at the same rows packed, qkv
+    (16, 64, 2304). 3 timings each (median)."""
+    gen = torch.Generator().manual_seed(12)
+    dt = torch.bfloat16
+    b, h, s, d = 16, 3, 64, 256
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen).to(DEVICE, dt)
+                  .transpose(1, 2) for _ in range(4))
+    out = _time_flash(q, k, v, g, "strided head views, no mask", 3)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(DEVICE, dt)
+    g = torch.randn(b, s, h * d, generator=gen).to(DEVICE, dt)
+    out.update(_time_packed(qkv, g, h, repeats=3, d=d))
     _log_times(out)
     return out
 
@@ -1891,6 +1995,7 @@ def main() -> int:
     time_serving_kernels()
     times = time_training_kernels()
     pre_times = time_pretrain_kernels()
+    wide_times = time_wide_heads()
     stack_times = time_block_stacks()
     log(f"end to end: serving {json.dumps(e2e)}")
     log(f"end to end: training {json.dumps(train)}")
@@ -1922,6 +2027,12 @@ def main() -> int:
                 if k in pre_times[name]}
         if "design_bound_ms" in t:
             extra["design_bound_ms"] = t["design_bound_ms"]
+        if name == "flash_attention":
+            extra["ms_without_lse"] = times["flash_attention_no_lse"]["ms"]
+        if name in wide_times:
+            extra["head_dim_256"] = {
+                k: wide_times[name][k] for k in ("shape", "ms", "plain_ms",
+                                                 "bound_ms", "library_ms")}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(c[name] for c in by_path.values()),

@@ -240,7 +240,8 @@ class Config:
     # without a mesh. Single-controller only (multi-HOST runs should use
     # per-host file sharding, data/shards.py).
     device_data_sharded: bool = False
-    remat: bool = False              # jax.checkpoint over tower blocks
+    remat: bool = False              # jax.checkpoint over tower blocks;
+    #                                  not ported: TrainState.create raises
     # Trainer metric cadence: fetch train-step losses device->host every N
     # steps instead of every step. On a remote TPU a value fetch is the
     # only true barrier and costs a full round-trip; fetching per step

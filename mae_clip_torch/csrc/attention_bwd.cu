@@ -38,9 +38,12 @@
 //     once.
 //   * flash, q (256, 2, 147, 128), k/v (256, 2, 50, 128) bf16: reads q, k,
 //     v, dO 51.6 MB, writes dq, dk, dv 32.4 MB: 84.0 MB -> 25.1 us, against
-//     4.82 GFLOP -> 4.9 us: bound by bytes.
-// The flash entry saves no row statistics in its forward and recomputes
-// them (launch<false>); wgmma/TMA bodies are later work.
+//     4.82 GFLOP -> 4.9 us: bound by bytes. This design also reads the
+//     forward's output and lse (19.6 MB -> 30.9 us in all). With one key
+//     tile (Sk = 50) a single kernel holds K and V and streams the queries
+//     (attn_bwd_stream_kernel), so each byte is read once.
+// Both entries take the forward's output and lse (the LSE bodies);
+// wgmma/TMA bodies are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,9 +63,9 @@ void set_scratch(BwdParams<T>& p, float* scratch, long long rows) {
 
 template <typename T>
 int flash(const void* q, const void* k, const void* v, const float* mask,
-          const void* dout, void* dq, void* dk, void* dv, float* scratch,
-          const long long* st, int B, int H, int Sq, int Sk, int Dh,
-          float scale, cudaStream_t stream) {
+          const void* out, const float* lse, const void* dout, void* dq,
+          void* dk, void* dv, float* scratch, const long long* st, int B,
+          int H, int Sq, int Sk, int Dh, float scale, cudaStream_t stream) {
   BwdParams<T> p = {};
   p.q = static_cast<const T*>(q);
   p.k = static_cast<const T*>(k);
@@ -72,16 +75,19 @@ int flash(const void* q, const void* k, const void* v, const float* mask,
   p.dk = static_cast<T*>(dk);
   p.dv = static_cast<T*>(dv);
   p.mask = mask;
+  p.out = static_cast<const T*>(out);
+  p.lse = lse;
   set_scratch(p, scratch, (long long)B * H * Sq);
-  Strides* all[7] = {&p.sq, &p.sk, &p.sv, &p.sdo, &p.sdq, &p.sdk, &p.sdv};
-  for (int i = 0; i < 7; ++i)
+  Strides* all[8] = {&p.sq,  &p.sk,  &p.sv,  &p.sdo,
+                     &p.sdq, &p.sdk, &p.sdv, &p.so};
+  for (int i = 0; i < 8; ++i)
     *all[i] = {st[3 * i], st[3 * i + 1], st[3 * i + 2]};
   p.H = H;
   p.Sq = Sq;
   p.Sk = Sk;
   p.Dh = Dh;
   p.scale = scale;
-  return attn_bwd::launch<false>(p, B, stream);
+  return attn_bwd::launch(p, B, stream);
 }
 
 template <typename T>
@@ -111,29 +117,31 @@ int packed(const void* qkv, const float* mask, const void* out,
   p.Sk = S;
   p.Dh = Dh;
   p.scale = scale;
-  return attn_bwd::launch<true>(p, B, stream);
+  return attn_bwd::launch(p, B, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. strides: 21 element strides, (batch,
-// head, row) for q, k, v, dout, dq, dk and dv in that order. scratch: 3*B*H*Sq
-// floats. Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16. out: the forward's output; lse: its
+// (B*H, Sq) fp32 row log-sum-exp (the bf16 tensor-core bodies need both; the
+// scalar body reads neither). strides: 24 element strides, (batch, head,
+// row) for q, k, v, dout, dq, dk, dv and out in that order. scratch:
+// 3*B*H*Sq floats. Returns a cudaError_t.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
-                        const float* mask, const void* dout, void* dq,
-                        void* dk, void* dv, float* scratch,
-                        const long long* strides, int B, int H, int Sq,
-                        int Sk, int Dh, float scale, int dtype,
+                        const float* mask, const void* out, const float* lse,
+                        const void* dout, void* dq, void* dk, void* dv,
+                        float* scratch, const long long* strides, int B,
+                        int H, int Sq, int Sk, int Dh, float scale, int dtype,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return flash<float>(q, k, v, mask, dout, dq, dk, dv, scratch, strides, B,
-                        H, Sq, Sk, Dh, scale, s);
+    return flash<float>(q, k, v, mask, out, lse, dout, dq, dk, dv, scratch,
+                        strides, B, H, Sq, Sk, Dh, scale, s);
   if (dtype == 1)
-    return flash<__nv_bfloat16>(q, k, v, mask, dout, dq, dk, dv, scratch,
-                                strides, B, H, Sq, Sk, Dh, scale, s);
+    return flash<__nv_bfloat16>(q, k, v, mask, out, lse, dout, dq, dk, dv,
+                                scratch, strides, B, H, Sq, Sk, Dh, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,63 +17,57 @@
 //   accumulated in fp32 and rounded to the input type on store (and, where
 //   the caller asks, also stored unrounded in fp32).
 //
-// No atomics, a deterministic result. launch<LSE> picks the bodies at
-// compile time.
+// No atomics, a deterministic result. launch() picks the bodies.
 //
-// LSE = true (#3, whose forward saved the row log-sum-exp lse = m +
-// log(max(l, 1e-30)) and the output O): FlashAttention-2's formulation.
-// P = exp(s - lse) directly, computed as exp2(s * scale * log2(e) - lse *
+// bf16 with Dh 64 or 128 and 16-byte aligned rows: the LSE bodies. The
+// forward saved the row log-sum-exp lse = m + log(max(l, 1e-30)) and the
+// output O, and the caller passes both (#3, #4, #7); without them the call
+// fails (cudaErrorInvalidValue). FlashAttention-2's formulation: P =
+// exp(s - lse) directly, computed as exp2(s * scale * log2(e) - lse *
 // log2(e)) (uniform 1/Sk on a row whose keys are all masked, whose lse is
 // -0.7 * FLT_MAX), and delta = rowsum(dO * O) in fp32, equal to rowsum(P *
-// dP) in exact arithmetic. Tensor-core bodies (bf16, Dh 64 or 128, 16-byte
-// aligned rows):
+// dP) in exact arithmetic. Tensor-core bodies on mma.sync.m16n8k16 (bf16
+// in, fp32 accumulate):
 //   * Sq, Sk <= 64 (the encoder's S = 50): attn_bwd_one_tile_kernel, one
 //     block per batch*head, 5 tile products (see the kernel).
-//   * Otherwise two kernels, launched in this order:
+//   * Sk <= 64 < Sq (the CrossMAE decoder's 147 queries on 50 keys):
+//     attn_bwd_stream_kernel, one block of 8 warps per batch*head that
+//     holds K and V and streams the queries (see the kernel); dq is
+//     complete in the block and stored at once.
+//   * Sk > 64: two kernels, launched in this order.
 //     attn_bwd_dq_lse_kernel, one block per (batch*head, 64-query tile):
 //     first delta for its rows (dO from shared memory, O straight from
 //     device memory; stored for the dk/dv kernel), then ONE pass over the
 //     keys: S, dP, dS and dq += dS . k. attn_bwd_dkdv_lse_kernel, one
 //     block per (batch*head, 64-key tile): S^T, dP^T from the same lse and
 //     delta, then dv += P^T . dO and dk += dS^T . q. That is 7 tile products
-//     per (query tile, key tile) pair, against the recomputing bodies' 9
-//     when Sk > 64. Both walk the other operand in 32-row stages through a
-//     two-stage cp.async ring (the next stage loads while this one's
-//     products run; one __syncthreads per stage).
+//     per (query tile, key tile) pair. Both walk the other operand in
+//     32-row stages through a two-stage cp.async ring (the next stage loads
+//     while this one's products run; one __syncthreads per stage). 68 KB of
+//     shared memory per block at Dh = 128 and 168 registers a thread:
+//     three blocks per SM. A fourth would need 128 registers; the dk/dv
+//     accumulators alone take 128 (16 keys x 128 columns x 2 per warp).
 //   All read every fragment with ldmatrix (.trans for the right operand of
-//   dq += dS k, dv += P^T dO and dk += dS^T q), skip 16-row chunks past Sq
-//   or Sk and warps whose 16 rows all lie past them. 68 KB of shared memory
-//   per block at Dh = 128 and 168 registers a thread: three blocks per SM.
-//   A fourth would need 128 registers; the dk/dv accumulators alone take
-//   128 (16 keys x 128 columns x 2 per warp).
-//   fp32 and every other case take the recomputing scalar body below (the
-//   forward's lse and O are then not read).
+//   dq += dS k, dv += P^T dO and dk += dS^T q), and skip 16-row chunks past
+//   Sq or Sk.
 //
-// LSE = false (#4 and the block stack's backward, which save no row
-// statistics): the row statistics are recomputed.
-//   * attn_bwd_dq_kernel: one block per (batch*head, 64-query tile). Pass 1
-//     walks the 64-key tiles and keeps m, l and sum(exp(s - m) * dP) online
+// Every other case (fp32, Dh other than 64 or 128 up to kMaxHeadDim = 256,
+// strides not a multiple of 8 elements): the recomputing scalar pair, which
+// reads no lse or O.
+//   * attn_bwd_dq_kernel: one block per (batch*head, query tile). Pass 1
+//     walks the key tiles and keeps m, l and sum(exp(s - m) * dP) online
 //     (rescaled as in the forward), which gives the row statistics m, l and
 //     delta; they go to an fp32 scratch (3, B*H, Sq). Pass 2 walks the key
 //     tiles again for dS and accumulates dq in registers. With a single key
-//     tile (Sk <= 64) pass 2 reuses pass 1's scores and tiles instead of
-//     recomputing them.
-//   * attn_bwd_dkdv_kernel: one block per (batch*head, 64-key tile). It
-//     walks the 64-query tiles, recomputes P and dS from the row statistics,
-//     and accumulates dk and dv in registers.
-//   Tensor-core body (bf16, Dh 64 or 128): 4 warps of 16 rows (queries in
-//   the dq kernel, keys in the dk/dv kernel), bf16 tiles in shared memory
-//   with rows padded by 8 elements, loaded between two __syncthreads; the
-//   five products run on mma.sync.m16n8k16 (bf16 in, fp32 accumulate). S
-//   and dP stay in registers in the mma C layout; P and dS are repacked
-//   there as the bf16 A fragments of the next product (which is where they
-//   round to bf16), so no score tile goes to shared memory. 68 KB of shared
-//   memory per block at Dh = 128.
-//   Scalar body: tiles in shared memory as fp32 (rows padded to Dh + 1: no
-//   bank conflicts on the column walks); each thread owns 4 rows x 4
-//   columns of a 64 x 64 score tile and 4 rows x Dh/16 columns of each
-//   accumulator. Shared memory is ~145 KB (dq) and ~162 KB (dk/dv) at
-//   Dh = 128, so the launcher raises the dynamic limit.
+//     tile pass 2 reuses pass 1's scores and tiles instead of recomputing
+//     them.
+//   * attn_bwd_dkdv_kernel: one block per (batch*head, key tile). It walks
+//     the query tiles, recomputes P and dS from the row statistics, and
+//     accumulates dk and dv in registers.
+//   Tiles sit in shared memory as fp32 (rows padded to Dh + 1: no bank
+//   conflicts on the column walks): 64 rows up to Dh = 128 (~145 KB for dq,
+//   ~162 KB for dk/dv at 128), 32 rows above (~133 / ~137 KB at 256), so
+//   the launcher raises the dynamic limit.
 
 #pragma once
 
@@ -88,11 +82,9 @@
 namespace {
 namespace attn_bwd {
 
-constexpr int kTile = 64;     // query rows or key rows per tile
-constexpr int kThreads = 256;
+constexpr int kTile = 64;       // query rows or key rows per tile
 constexpr int kStageRows = 32;  // keys (dq) or queries (dk/dv) per stage
 constexpr int kRing = 2;        // stages in the cp.async ring
-constexpr int kCols = kMaxHeadDim / 16;  // accumulator columns per thread
 
 template <typename T>
 struct BwdParams {
@@ -120,13 +112,31 @@ struct BwdParams {
   float scale;
 };
 
-// Rows row0 .. row0+63 of a (n, Dh) operand into a padded fp32 tile; rows
-// past n are zero.
-template <typename T>
+// ---------------------------------------------------------------------------
+// Scalar bodies (fp32, and bf16 where the tensor-core bodies do not apply).
+// MAXD, the widest head an instance takes, sets the tile: heads up to 128
+// take 64-row tiles and 256 threads, wider ones (up to kMaxHeadDim = 256)
+// 32-row tiles and 128 threads, so that four fp32 tiles of 256 columns fit
+// the 227 KB of shared memory a block may use. Each thread owns 4 rows x
+// kT / 16 columns of the kT x kT score tile and 4 rows x MAXD / 16 columns
+// of each accumulator.
+// ---------------------------------------------------------------------------
+
+template <int MAXD>
+struct Scalar {
+  static constexpr int kT = MAXD > 128 ? 32 : 64;  // rows per tile
+  static constexpr int kThr = 4 * kT;              // threads per block
+  static constexpr int kJ = kT / 16;               // score columns / thread
+  static constexpr int kCols = MAXD / 16;          // accumulator columns
+};
+
+// Rows row0 .. row0+kT-1 of a (n, Dh) operand into a padded fp32 tile;
+// rows past n are zero.
+template <int kT, typename T>
 __device__ __forceinline__ void load_rows(float* dst, const T* src, int row0,
                                           int n, long long stride, int dh) {
   const int ld = dh + 1;
-  for (int i = threadIdx.x; i < kTile * dh; i += kThreads) {
+  for (int i = threadIdx.x; i < kT * dh; i += 4 * kT) {
     const int r = i / dh, c = i % dh, row = row0 + r;
     dst[r * ld + c] = row < n ? to_float(src[row * stride + c]) : 0.f;
   }
@@ -134,27 +144,32 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, int row0,
 
 // x[i][j] = a[ty*4+i] . b[tx+16j] and y[i][j] = c[ty*4+i] . d[tx+16j] over
 // Dh columns of four padded tiles.
-__device__ __forceinline__ void two_dots(float (&x)[4][4], float (&y)[4][4],
-                                         const float* a, const float* b,
-                                         const float* c, const float* d,
-                                         int ld, int dh, int ty, int tx) {
+template <int kJ>
+__device__ __forceinline__ void two_dots(float (&x)[4][kJ],
+                                         float (&y)[4][kJ], const float* a,
+                                         const float* b, const float* c,
+                                         const float* d, int ld, int dh,
+                                         int ty, int tx) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) x[i][j] = y[i][j] = 0.f;
+    for (int j = 0; j < kJ; ++j) x[i][j] = y[i][j] = 0.f;
   for (int e = 0; e < dh; ++e) {
-    float av[4], bv[4], cv[4], dv[4];
+    float av[4], cv[4], bv[kJ], dv[kJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       av[i] = a[(ty * 4 + i) * ld + e];
       cv[i] = c[(ty * 4 + i) * ld + e];
-      bv[i] = b[(tx + 16 * i) * ld + e];
-      dv[i] = d[(tx + 16 * i) * ld + e];
+    }
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      bv[j] = b[(tx + 16 * j) * ld + e];
+      dv[j] = d[(tx + 16 * j) * ld + e];
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         x[i][j] = fmaf(av[i], bv[j], x[i][j]);
         y[i][j] = fmaf(cv[i], dv[j], y[i][j]);
       }
@@ -166,11 +181,12 @@ __device__ __forceinline__ bool key_valid(const float* mb, int key, int sk) {
 }
 
 // Scale and mask: s is (query rows, keys tx + 16j of the tile at k0).
-__device__ __forceinline__ void mask_scores(float (&s)[4][4], const float* mb,
-                                            int k0, int sk, float scale,
-                                            int tx) {
+template <int kJ>
+__device__ __forceinline__ void mask_scores(float (&s)[4][kJ],
+                                            const float* mb, int k0, int sk,
+                                            float scale, int tx) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < kJ; ++j) {
     const int key = k0 + tx + 16 * j;
     const bool in = key < sk, valid = key_valid(mb, key, sk);
 #pragma unroll
@@ -192,20 +208,22 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int MAXD>
+__global__ void __launch_bounds__(Scalar<MAXD>::kThr)
     attn_bwd_dq_kernel(BwdParams<T> p) {
+  constexpr int kT = Scalar<MAXD>::kT, kJ = Scalar<MAXD>::kJ;
+  constexpr int kCols = Scalar<MAXD>::kCols;
   extern __shared__ float smem[];
-  const int ld = p.Dh + 1, lp = kTile + 1;
-  float* qs = smem;                // kTile x ld
-  float* dos = qs + kTile * ld;    // kTile x ld
-  float* ks = dos + kTile * ld;    // kTile x ld
-  float* vs = ks + kTile * ld;     // kTile x ld
-  float* ds = vs + kTile * ld;     // kTile x lp
+  const int ld = p.Dh + 1, lp = kT + 1;
+  float* qs = smem;             // kT x ld
+  float* dos = qs + kT * ld;    // kT x ld
+  float* ks = dos + kT * ld;    // kT x ld
+  float* vs = ks + kT * ld;     // kT x ld
+  float* ds = vs + kT * ld;     // kT x lp
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.y * kTile;
+  const int q0 = blockIdx.y * kT;
   const T* qb = p.q + b * p.sq.b + h * p.sq.h;
   const T* kb = p.k + b * p.sk.b + h * p.sk.h;
   const T* vb = p.v + b * p.sv.b + h * p.sv.h;
@@ -214,36 +232,37 @@ __global__ void __launch_bounds__(kThreads)
   float* dqfb = p.dq_f ? p.dq_f + b * p.sdq.b + h * p.sdq.h : nullptr;
   const float* mb = p.mask ? p.mask + (long long)b * p.Sk : nullptr;
 
-  load_rows(qs, qb, q0, p.Sq, p.sq.r, p.Dh);
-  load_rows(dos, dob, q0, p.Sq, p.sdo.r, p.Dh);
+  load_rows<kT>(qs, qb, q0, p.Sq, p.sq.r, p.Dh);
+  load_rows<kT>(dos, dob, q0, p.Sq, p.sdo.r, p.Dh);
 
-  float m[4], l[4], dsum[4], s[4][4], dp[4][4];
+  float m[4], l[4], dsum[4], s[4][kJ], dp[4][kJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     l[i] = dsum[i] = 0.f;
   }
-  const int n_tiles = (p.Sk + kTile - 1) / kTile;
+  const int n_tiles = (p.Sk + kT - 1) / kT;
 
   // Pass 1: the row statistics, online over the key tiles. Key 0 of the
   // first tile is inside Sk, so m is finite after it and exp(-inf - m) = 0.
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
+    const int k0 = t * kT;
     __syncthreads();  // the previous tile's reads are done
-    load_rows(ks, kb, k0, p.Sk, p.sk.r, p.Dh);
-    load_rows(vs, vb, k0, p.Sk, p.sv.r, p.Dh);
+    load_rows<kT>(ks, kb, k0, p.Sk, p.sk.r, p.Dh);
+    load_rows<kT>(vs, vb, k0, p.Sk, p.sv.r, p.Dh);
     __syncthreads();
     two_dots(s, dp, qs, ks, dos, vs, ld, p.Dh, ty, tx);
     mask_scores(s, mb, k0, p.Sk, p.scale, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float mx = half_warp_max(
-          fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
-      const float m_new = fmaxf(m[i], mx);
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) mx = fmaxf(mx, s[i][j]);
+      const float m_new = fmaxf(m[i], half_warp_max(mx));
       const float alpha = expf(m[i] - m_new);
       float se = 0.f, sed = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         const float e = expf(s[i][j] - m_new);
         se += e;
         sed = fmaf(e, dp[i][j], sed);
@@ -275,17 +294,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
+    const int k0 = t * kT;
     if (n_tiles > 1) {  // else the tile and its scores are still here
       __syncthreads();
-      load_rows(ks, kb, k0, p.Sk, p.sk.r, p.Dh);
-      load_rows(vs, vb, k0, p.Sk, p.sv.r, p.Dh);
+      load_rows<kT>(ks, kb, k0, p.Sk, p.sk.r, p.Dh);
+      load_rows<kT>(vs, vb, k0, p.Sk, p.sv.r, p.Dh);
       __syncthreads();
       two_dots(s, dp, qs, ks, dos, vs, ld, p.Dh, ty, tx);
       mask_scores(s, mb, k0, p.Sk, p.scale, tx);
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kJ; ++j) {
       const bool valid = key_valid(mb, k0 + tx + 16 * j, p.Sk);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -295,7 +314,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    const int kn = min(kTile, p.Sk - k0);
+    const int kn = min(kT, p.Sk - k0);
     for (int kk = 0; kk < kn; ++kk) {
       float dsv[4];
 #pragma unroll
@@ -326,21 +345,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int MAXD>
+__global__ void __launch_bounds__(Scalar<MAXD>::kThr)
     attn_bwd_dkdv_kernel(BwdParams<T> p) {
+  constexpr int kT = Scalar<MAXD>::kT, kJ = Scalar<MAXD>::kJ;
+  constexpr int kCols = Scalar<MAXD>::kCols;
   extern __shared__ float smem[];
-  const int ld = p.Dh + 1, lp = kTile + 1;
-  float* ks = smem;                // kTile x ld
-  float* vs = ks + kTile * ld;     // kTile x ld
-  float* qs = vs + kTile * ld;     // kTile x ld
-  float* dos = qs + kTile * ld;    // kTile x ld
-  float* pt = dos + kTile * ld;    // kTile keys x lp queries: round(P)^T
-  float* dst = pt + kTile * lp;    // kTile keys x lp queries: dS^T
+  const int ld = p.Dh + 1, lp = kT + 1;
+  float* ks = smem;             // kT x ld
+  float* vs = ks + kT * ld;     // kT x ld
+  float* qs = vs + kT * ld;     // kT x ld
+  float* dos = qs + kT * ld;    // kT x ld
+  float* pt = dos + kT * ld;    // kT keys x lp queries: round(P)^T
+  float* dst = pt + kT * lp;    // kT keys x lp queries: dS^T
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int k0 = blockIdx.y * kTile;
+  const int k0 = blockIdx.y * kT;
   const T* qb = p.q + b * p.sq.b + h * p.sq.h;
   const T* kb = p.k + b * p.sk.b + h * p.sk.h;
   const T* vb = p.v + b * p.sv.b + h * p.sv.h;
@@ -352,8 +373,8 @@ __global__ void __launch_bounds__(kThreads)
   const float* mb = p.mask ? p.mask + (long long)b * p.Sk : nullptr;
   const long long rows = (long long)bh * p.Sq;
 
-  load_rows(ks, kb, k0, p.Sk, p.sk.r, p.Dh);
-  load_rows(vs, vb, k0, p.Sk, p.sv.r, p.Dh);
+  load_rows<kT>(ks, kb, k0, p.Sk, p.sk.r, p.Dh);
+  load_rows<kT>(vs, vb, k0, p.Sk, p.sv.r, p.Dh);
 
   // This thread's keys: k0 + ty*4 + i.
   bool in[4], valid[4];
@@ -370,17 +391,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) dk[i][c] = dv[i][c] = 0.f;
 
-  for (int q0 = 0; q0 < p.Sq; q0 += kTile) {
+  for (int q0 = 0; q0 < p.Sq; q0 += kT) {
     __syncthreads();  // the previous tile's reads are done
-    load_rows(qs, qb, q0, p.Sq, p.sq.r, p.Dh);
-    load_rows(dos, dob, q0, p.Sq, p.sdo.r, p.Dh);
+    load_rows<kT>(qs, qb, q0, p.Sq, p.sq.r, p.Dh);
+    load_rows<kT>(dos, dob, q0, p.Sq, p.sdo.r, p.Dh);
     __syncthreads();
     // s^T and dP^T: keys ty*4+i, queries tx+16j. k . q sums the same
     // products in the same order as q . k, so P matches the dq kernel's.
-    float s[4][4], dp[4][4];
+    float s[4][kJ], dp[4][kJ];
     two_dots(s, dp, ks, qs, vs, dos, ld, p.Dh, ty, tx);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kJ; ++j) {
       const int row = q0 + tx + 16 * j;
       const bool qin = row < p.Sq;
       const float m = qin ? p.row_m[rows + row] : 0.f;
@@ -397,7 +418,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    const int qn = min(kTile, p.Sq - q0);
+    const int qn = min(kT, p.Sq - q0);
     for (int qq = 0; qq < qn; ++qq) {
       float pv[4], sv[4];
 #pragma unroll
@@ -436,301 +457,6 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 }
-
-// ---------------------------------------------------------------------------
-// Tensor-core bodies: bf16, Dh = 64 or 128, rows 16-byte aligned. The same
-// two kernels and scratch as above, with the five products on mma.sync
-// (bf16 in, fp32 accumulate) over bf16 tiles in shared memory, 4 warps of
-// 16 rows each. x[n][e] of a 16 x 64 tile is row g + 8 * (e / 2), column
-// 8n + 2t + e % 2 (the mma C layout).
-// ---------------------------------------------------------------------------
-
-// x = A[r0 .. r0+15] . B[0 .. 63]^T over D columns of two padded tiles.
-template <int D>
-__device__ __forceinline__ void tile_dots(float (&x)[8][4],
-                                          const __nv_bfloat16* a,
-                                          const __nv_bfloat16* b, int r0,
-                                          int g, int t) {
-  constexpr int kLd = D + 8;
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const __nv_bfloat16* ar = a + (r0 + g) * kLd + kc * 16 + 2 * t;
-    const uint32_t af[4] = {ld32(ar), ld32(ar + 8 * kLd), ld32(ar + 8),
-                            ld32(ar + 8 * kLd + 8)};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const __nv_bfloat16* br = b + (n * 8 + g) * kLd + kc * 16 + 2 * t;
-      mma_bf16(x[n], af, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
-// acc += round(x) . M, x a 16 x 64 tile in the C layout, M 64 rows x D.
-template <int D>
-__device__ __forceinline__ void tile_times(float (&acc)[D / 8][4],
-                                           const float (&x)[8][4],
-                                           const __nv_bfloat16* m, int g,
-                                           int t) {
-  constexpr int kLd = D + 8;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t a[4] = {pack(x[2 * j][0], x[2 * j][1]),
-                           pack(x[2 * j][2], x[2 * j][3]),
-                           pack(x[2 * j + 1][0], x[2 * j + 1][1]),
-                           pack(x[2 * j + 1][2], x[2 * j + 1][3])};
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const __nv_bfloat16* mr = m + (j * 16 + 2 * t) * kLd + n * 8 + g;
-      mma_bf16(acc[n], a, pack(mr[0], mr[kLd]),
-               pack(mr[8 * kLd], mr[9 * kLd]));
-    }
-  }
-}
-
-// Scale and mask a 16 x 64 score tile whose columns are keys k0 + 8n + 2t + e.
-__device__ __forceinline__ void mask_tile(float (&s)[8][4], const float* mb,
-                                          int k0, int sk, float scale,
-                                          int t) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int key = k0 + n * 8 + 2 * t + e;
-      const bool in = key < sk, valid = key_valid(mb, key, sk);
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float& x = s[n][2 * hr + e];
-        x = !in ? -INFINITY : (valid ? x * scale : kMaskValue);
-      }
-    }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    attn_bwd_dq_mma_kernel(BwdParams<__nv_bfloat16> p) {
-  constexpr int kLd = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + kTile * kLd;
-  __nv_bfloat16* ks = dos + kTile * kLd;
-  __nv_bfloat16* vs = ks + kTile * kLd;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, r0 = warp * 16;
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.y * kTile;
-  const __nv_bfloat16* kb = p.k + b * p.sk.b + h * p.sk.h;
-  const __nv_bfloat16* vb = p.v + b * p.sv.b + h * p.sv.h;
-  __nv_bfloat16* dqb = p.dq + b * p.sdq.b + h * p.sdq.h;
-  float* dqfb = p.dq_f ? p.dq_f + b * p.sdq.b + h * p.sdq.h : nullptr;
-  const float* mb = p.mask ? p.mask + (long long)b * p.Sk : nullptr;
-
-  load_tile<D>(qs, p.q + b * p.sq.b + h * p.sq.h, q0, p.Sq, p.sq.r);
-  load_tile<D>(dos, p.dout + b * p.sdo.b + h * p.sdo.h, q0, p.Sq, p.sdo.r);
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float dsum[2] = {0.f, 0.f}, s[8][4], dp[8][4];
-  const int n_tiles = (p.Sk + kTile - 1) / kTile;
-
-  // Pass 1: row statistics, online over the key tiles (as the scalar body).
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<D>(ks, kb, k0, p.Sk, p.sk.r);
-    load_tile<D>(vs, vb, k0, p.Sk, p.sv.r);
-    __syncthreads();
-    tile_dots<D>(s, qs, ks, r0, g, t);
-    tile_dots<D>(dp, dos, vs, r0, g, t);
-    mask_tile(s, mb, k0, p.Sk, p.scale, t);
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        mx = fmaxf(mx, fmaxf(s[n][2 * hr], s[n][2 * hr + 1]));
-      const float m_new = fmaxf(m[hr], quad_max(mx));
-      const float alpha = expf(m[hr] - m_new);
-      float se = 0.f, sed = 0.f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float ex = expf(s[n][2 * hr + e] - m_new);
-          se += ex;
-          sed = fmaf(ex, dp[n][2 * hr + e], sed);
-        }
-      l[hr] = l[hr] * alpha + quad_sum(se);
-      dsum[hr] = dsum[hr] * alpha + quad_sum(sed);
-      m[hr] = m_new;
-    }
-  }
-
-  float lmax[2], delta[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    lmax[hr] = fmaxf(l[hr], 1e-30f);
-    delta[hr] = dsum[hr] / lmax[hr];
-    const int row = q0 + r0 + g + 8 * hr;
-    if (t == 0 && row < p.Sq) {
-      const long long at = (long long)bh * p.Sq + row;
-      p.row_m[at] = m[hr];
-      p.row_l[at] = l[hr];
-      p.row_delta[at] = delta[hr];
-    }
-  }
-
-  // Pass 2: dS (in place of s) per key tile, dq += dS . k.
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kTile;
-    if (n_tiles > 1) {  // else the tile and its scores are still here
-      __syncthreads();
-      load_tile<D>(ks, kb, k0, p.Sk, p.sk.r);
-      load_tile<D>(vs, vb, k0, p.Sk, p.sv.r);
-      __syncthreads();
-      tile_dots<D>(s, qs, ks, r0, g, t);
-      tile_dots<D>(dp, dos, vs, r0, g, t);
-      mask_tile(s, mb, k0, p.Sk, p.scale, t);
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool valid = key_valid(mb, k0 + n * 8 + 2 * t + e, p.Sk);
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          float& x = s[n][2 * hr + e];
-          const float pr = expf(x - m[hr]) / lmax[hr];
-          x = valid ? pr * (dp[n][2 * hr + e] - delta[hr]) : 0.f;
-        }
-      }
-    tile_times<D>(acc, s, ks, g, t);
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = q0 + r0 + g + 8 * hr;
-    if (row >= p.Sq) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const long long i = row * p.sdq.r + n * 8 + 2 * t;
-      const float x0 = acc[n][2 * hr] * p.scale;
-      const float x1 = acc[n][2 * hr + 1] * p.scale;
-      *reinterpret_cast<__nv_bfloat162*>(dqb + i) =
-          __floats2bfloat162_rn(x0, x1);
-      if (dqfb) *reinterpret_cast<float2*>(dqfb + i) = make_float2(x0, x1);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    attn_bwd_dkdv_mma_kernel(BwdParams<__nv_bfloat16> p) {
-  constexpr int kLd = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kTile * kLd;
-  __nv_bfloat16* qs = vs + kTile * kLd;
-  __nv_bfloat16* dos = qs + kTile * kLd;
-  float* st_m = reinterpret_cast<float*>(dos + kTile * kLd);  // per query
-  float* st_l = st_m + kTile;
-  float* st_d = st_l + kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, r0 = warp * 16;
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int k0 = blockIdx.y * kTile;
-  const __nv_bfloat16* qb = p.q + b * p.sq.b + h * p.sq.h;
-  const __nv_bfloat16* dob = p.dout + b * p.sdo.b + h * p.sdo.h;
-  __nv_bfloat16* dkb = p.dk + b * p.sdk.b + h * p.sdk.h;
-  __nv_bfloat16* dvb = p.dv + b * p.sdv.b + h * p.sdv.h;
-  float* dkfb = p.dk_f ? p.dk_f + b * p.sdk.b + h * p.sdk.h : nullptr;
-  float* dvfb = p.dv_f ? p.dv_f + b * p.sdv.b + h * p.sdv.h : nullptr;
-  const float* mb = p.mask ? p.mask + (long long)b * p.Sk : nullptr;
-  const long long rows = (long long)bh * p.Sq;
-
-  load_tile<D>(ks, p.k + b * p.sk.b + h * p.sk.h, k0, p.Sk, p.sk.r);
-  load_tile<D>(vs, p.v + b * p.sv.b + h * p.sv.h, k0, p.Sk, p.sv.r);
-
-  // This thread's keys: rows g and g + 8 of its warp's 16.
-  bool in[2], valid[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int key = k0 + r0 + g + 8 * hr;
-    in[hr] = key < p.Sk;
-    valid[hr] = key_valid(mb, key, p.Sk);
-  }
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  for (int q0 = 0; q0 < p.Sq; q0 += kTile) {
-    __syncthreads();  // the previous tile's reads are done
-    load_tile<D>(qs, qb, q0, p.Sq, p.sq.r);
-    load_tile<D>(dos, dob, q0, p.Sq, p.sdo.r);
-    for (int i = threadIdx.x; i < kTile; i += kMmaThreads) {
-      const int row = q0 + i;
-      const bool qin = row < p.Sq;
-      st_m[i] = qin ? p.row_m[rows + row] : 0.f;
-      st_l[i] = qin ? fmaxf(p.row_l[rows + row], 1e-30f) : 1.f;
-      st_d[i] = qin ? p.row_delta[rows + row] : 0.f;
-    }
-    __syncthreads();
-    // s^T and dP^T: this warp's 16 keys x 64 queries.
-    float s[8][4], dp[8][4];
-    tile_dots<D>(dp, vs, dos, r0, g, t);
-    tile_dots<D>(s, ks, qs, r0, g, t);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = n * 8 + 2 * t + e;
-        const bool qin = q0 + c < p.Sq;
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          float& x = s[n][2 * hr + e];
-          float& y = dp[n][2 * hr + e];
-          x = !in[hr] ? -INFINITY : (valid[hr] ? x * p.scale : kMaskValue);
-          const float pr = qin ? expf(x - st_m[c]) / st_l[c] : 0.f;
-          x = pr;
-          y = qin && valid[hr] ? pr * (y - st_d[c]) : 0.f;
-        }
-      }
-    tile_times<D>(dv, s, dos, g, t);  // dv += round(P)^T . dO
-    tile_times<D>(dk, dp, qs, g, t);  // dk += round(dS)^T . q
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    if (!in[hr]) continue;
-    const int key = k0 + r0 + g + 8 * hr;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int col = n * 8 + 2 * t;
-      const long long ik = key * p.sdk.r + col, iv = key * p.sdv.r + col;
-      const float k0v = dk[n][2 * hr] * p.scale;
-      const float k1v = dk[n][2 * hr + 1] * p.scale;
-      *reinterpret_cast<__nv_bfloat162*>(dkb + ik) =
-          __floats2bfloat162_rn(k0v, k1v);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + iv) =
-          __floats2bfloat162_rn(dv[n][2 * hr], dv[n][2 * hr + 1]);
-      if (dkfb) *reinterpret_cast<float2*>(dkfb + ik) = make_float2(k0v, k1v);
-      if (dvfb)
-        *reinterpret_cast<float2*>(dvfb + iv) =
-            make_float2(dv[n][2 * hr], dv[n][2 * hr + 1]);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // LSE bodies: the forward's lse and output given (see the top of the file).
 // ---------------------------------------------------------------------------
@@ -1306,6 +1032,254 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
   }
 }
 
+// Sk <= 64 < Sq (#4 at the CrossMAE decoder: 147 queries on 50 keys, and
+// #7's cross-attention there): the whole backward in one kernel, one block
+// of 8 warps per batch*head. K and V are loaded once; the query rows stream
+// through a two-stage cp.async ring of 32-row stages (Q, dO, O and lse), the
+// next stage loading while this one's products run. Per stage, two
+// __syncthreads:
+//   A. warp w takes query chunk w / 4 (16 rows) against key chunk w % 4
+//      (16 keys): delta = rowsum(dO * O) for its rows, S and dP, then P and
+//      dS, written to shared memory as [query][key] bf16 tiles with 16-byte
+//      chunks XOR-swizzled by row (as in attn_bwd_one_tile_kernel).
+//   B. warps 0-3 add round(P)^T dO to dv of key chunk w, warps 4-7
+//      round(dS)^T Q to dk of key chunk w - 4: each warp keeps one 16 x Dh
+//      fp32 accumulator for the whole kernel (64 registers at Dh = 128).
+//   C. warp w: dq of query chunk w / 4, columns (w % 4) Dh / 4 ..: complete,
+//      since the block holds every key, so it is stored at once.
+// Each byte of Q, dO, O, K and V is read once and each gradient written
+// once. 93 KB of shared memory at Dh = 128 and at most 128 registers a
+// thread: two blocks (16 warps) per SM.
+constexpr int kStreamThreads = 256;
+constexpr int kStreamRows = 32;  // query rows per stage
+
+template <int D>
+__global__ void __launch_bounds__(kStreamThreads, 2)
+    attn_bwd_stream_kernel(BwdParams<__nv_bfloat16> p) {
+  constexpr int kLd = D + 8, kRows = kStreamRows;
+  // A stage: Q, dO and O rows, then the rows' lse (fp32).
+  constexpr int kStage = 3 * kRows * kLd + 2 * kRows;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + kTile * kLd;
+  __nv_bfloat16* ps = vs + kTile * kLd;      // kRows x 64 P, swizzled
+  __nv_bfloat16* dss = ps + kRows * kTile;   // kRows x 64 dS, swizzled
+  __nv_bfloat16* ring = dss + kRows * kTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, j8 = lane / 8, r8 = lane % 8;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int nk = div_up(p.Sk, 16), n_stages = div_up(p.Sq, kRows);
+  const __nv_bfloat16* qb = p.q + b * p.sq.b + h * p.sq.h;
+  const __nv_bfloat16* dob = p.dout + b * p.sdo.b + h * p.sdo.h;
+  const __nv_bfloat16* ob = p.out + b * p.so.b + h * p.so.h;
+  const float* mb = p.mask ? p.mask + (long long)b * p.Sk : nullptr;
+  const long long rows = (long long)bh * p.Sq;
+
+  // Rows row0 .. row0 + n - 1 of a (rows, D) operand, zero past `last`.
+  auto copy_rows = [&](__nv_bfloat16* dst, const __nv_bfloat16* src,
+                       int row0, int n, int last, long long stride) {
+    constexpr int kPieces = D / 8;
+    for (int i = threadIdx.x; i < n * kPieces; i += kStreamThreads) {
+      const int r = i / kPieces, c = (i % kPieces) * 8, row = row0 + r;
+      cp_async16(dst + r * kLd + c, row < last ? src + row * stride + c : src,
+                 row < last);
+    }
+  };
+  auto load_stage = [&](int st) {
+    __nv_bfloat16* qs = ring + (st & 1) * kStage;
+    const int q0 = st * kRows, n = min(kRows, 16 * div_up(p.Sq - q0, 16));
+    copy_rows(qs, qb, q0, n, p.Sq, p.sq.r);
+    copy_rows(qs + kRows * kLd, dob, q0, n, p.Sq, p.sdo.r);
+    copy_rows(qs + 2 * kRows * kLd, ob, q0, n, p.Sq, p.so.r);
+    if (threadIdx.x < kRows) {  // lse, zero past Sq (P there meets zero dO)
+      const int q = q0 + threadIdx.x;
+      cp_async4(reinterpret_cast<float*>(qs + 3 * kRows * kLd) + threadIdx.x,
+                q < p.Sq ? p.lse + rows + q : p.lse, q < p.Sq);
+    }
+  };
+  copy_rows(ks, p.k + b * p.sk.b + h * p.sk.h, 0, 16 * nk, p.Sk, p.sk.r);
+  copy_rows(vs, p.v + b * p.sv.b + h * p.sv.h, 0, 16 * nk, p.Sk, p.sv.r);
+  load_stage(0);
+  cp_async_commit();
+
+  // Phase A's query chunk and the key chunk of phases A and B.
+  const int qa = warp / 4, kw = warp % 4;
+  bool valid[2][2];  // phase A: keys 16 kw + 8n + 2t + e
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      valid[n][e] = key_valid(mb, 16 * kw + 8 * n + 2 * t + e, p.Sk);
+  const float sc2 = p.scale * kLog2e, inv_sk = 1.f / p.Sk;
+  // Phase B's operands: round(P)^T and dO for dv, round(dS)^T and Q for dk.
+  const bool for_dv = warp < 4;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait<0>();  // stage st has landed ...
+    __syncthreads();     // ... for every thread; stage st - 1 is read
+    if (st + 1 < n_stages) load_stage(st + 1);
+    cp_async_commit();
+    const int q0 = st * kRows, nq = min(2, div_up(p.Sq - q0, 16));
+    const __nv_bfloat16* qs = ring + (st & 1) * kStage;
+    const __nv_bfloat16* dos = qs + kRows * kLd;
+    const __nv_bfloat16* os = dos + kRows * kLd;
+    const float* ls = reinterpret_cast<const float*>(os + kRows * kLd);
+
+    // A. P and dS of 16 queries x 16 keys.
+    if (qa < nq && kw < nk) {
+      const int r0 = 16 * qa;
+      float delta[2], lse2[2];
+      bool dead[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = r0 + g + 8 * hr;
+        float d = 0.f;
+#pragma unroll
+        for (int c = t; c < D / 8; c += 4)
+          d = dot8(*reinterpret_cast<const uint4*>(dos + r * kLd + 8 * c),
+                   *reinterpret_cast<const uint4*>(os + r * kLd + 8 * c), d);
+        delta[hr] = quad_sum(d);
+        dead[hr] = mb != nullptr && ls[r] < 0.5f * kMaskValue;
+        lse2[hr] = ls[r] * kLog2e;
+      }
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        uint32_t a[4], ad[4], bk[4], bv[4];
+        frag_a<kLd>(a, qs, r0, kc * 16);
+        frag_a<kLd>(ad, dos, r0, kc * 16);
+        frag_b_rows_n<kLd>(bk, ks, 16 * kw, kc * 16);
+        frag_b_rows_n<kLd>(bv, vs, 16 * kw, kc * 16);
+        mma_bf16(s[0], a, bk[0], bk[1]);
+        mma_bf16(s[1], a, bk[2], bk[3]);
+        mma_bf16(dp[0], ad, bv[0], bv[1]);
+        mma_bf16(dp[1], ad, bv[2], bv[3]);
+      }
+      // P = exp(s - lse) (in base 2; uniform 1 / Sk on a row whose keys are
+      // all masked), dS = P (dP - delta); both zero at masked keys and
+      // keys past Sk, except P on such a dead row (its dv only).
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            float& x = s[n][2 * hr + e];
+            float& y = dp[n][2 * hr + e];
+            const float pr =
+                dead[hr] ? inv_sk
+                         : (valid[n][e] ? fast_exp2(fmaf(x, sc2, -lse2[hr]))
+                                        : 0.f);
+            x = pr;
+            y = valid[n][e] ? pr * (y - delta[hr]) : 0.f;
+          }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int i = swz64(r0 + g + 8 * hr, 16 * kw + 8 * n + 2 * t);
+          *reinterpret_cast<uint32_t*>(ps + i) =
+              pack(s[n][2 * hr], s[n][2 * hr + 1]);
+          *reinterpret_cast<uint32_t*>(dss + i) =
+              pack(dp[n][2 * hr], dp[n][2 * hr + 1]);
+        }
+    }
+    __syncthreads();
+
+    // B. dv += round(P)^T dO or dk += round(dS)^T Q over the stage's
+    // queries. The A fragment (keys 16 kw.., queries 16c..) is the
+    // transpose of the stored [query][key] tile: ldmatrix.trans.
+    if (kw < nk) {
+      const __nv_bfloat16* lhs = for_dv ? ps : dss;
+      const __nv_bfloat16* rhs = for_dv ? dos : qs;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (c >= nq) continue;
+        uint32_t a[4];
+        ldsm4_t(a, lhs + swz64(c * 16 + (j8 / 2) * 8 + r8,
+                               16 * kw + (j8 % 2) * 8));
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {
+          uint32_t bf[4];
+          frag_b_rows_k<kLd>(bf, rhs, c * 16, np * 16);
+          mma_bf16(acc[2 * np], a, bf[0], bf[1]);
+          mma_bf16(acc[2 * np + 1], a, bf[2], bf[3]);
+        }
+      }
+    }
+
+    // C. dq = round(dS) K for 16 queries x Dh / 4 columns, stored at once.
+    if (qa < nq) {
+      constexpr int kN = D / 32;  // n8 tiles of the warp's columns
+      const int r0 = 16 * qa, c0 = kw * (D / 4);
+      float dq[kN][4];
+#pragma unroll
+      for (int n = 0; n < kN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j >= nk) continue;
+        uint32_t a[4];
+        ldsm4(a, dss + swz64(r0 + (lane & 15), 16 * j + (lane >> 4) * 8));
+#pragma unroll
+        for (int np = 0; np < kN / 2; ++np) {
+          uint32_t bf[4];
+          frag_b_rows_k<kLd>(bf, ks, 16 * j, c0 + 16 * np);
+          mma_bf16(dq[2 * np], a, bf[0], bf[1]);
+          mma_bf16(dq[2 * np + 1], a, bf[2], bf[3]);
+        }
+      }
+      __nv_bfloat16* dqb = p.dq + b * p.sdq.b + h * p.sdq.h;
+      float* dqfb = p.dq_f ? p.dq_f + b * p.sdq.b + h * p.sdq.h : nullptr;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = q0 + r0 + g + 8 * hr;
+        if (row >= p.Sq) continue;
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          const long long i = row * p.sdq.r + c0 + n * 8 + 2 * t;
+          const float x0 = dq[n][2 * hr] * p.scale;
+          const float x1 = dq[n][2 * hr + 1] * p.scale;
+          *reinterpret_cast<__nv_bfloat162*>(dqb + i) =
+              __floats2bfloat162_rn(x0, x1);
+          if (dqfb) *reinterpret_cast<float2*>(dqfb + i) = make_float2(x0, x1);
+        }
+      }
+    }
+  }
+
+  if (kw >= nk) return;
+  __nv_bfloat16* gb = for_dv ? p.dv + b * p.sdv.b + h * p.sdv.h
+                             : p.dk + b * p.sdk.b + h * p.sdk.h;
+  float* fb = for_dv ? p.dv_f : p.dk_f;
+  if (fb) fb += for_dv ? b * p.sdv.b + h * p.sdv.h : b * p.sdk.b + h * p.sdk.h;
+  const long long stride = for_dv ? p.sdv.r : p.sdk.r;
+  const float mul = for_dv ? 1.f : p.scale;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = 16 * kw + g + 8 * hr;
+    if (key >= p.Sk) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const long long i = key * stride + n * 8 + 2 * t;
+      const float x0 = acc[n][2 * hr] * mul, x1 = acc[n][2 * hr + 1] * mul;
+      *reinterpret_cast<__nv_bfloat162*>(gb + i) =
+          __floats2bfloat162_rn(x0, x1);
+      if (fb) *reinterpret_cast<float2*>(fb + i) = make_float2(x0, x1);
+    }
+  }
+}
+
 // The tensor-core bodies need 16-byte aligned rows: every pointer on a
 // 16-byte boundary and every stride a multiple of 8 elements.
 inline bool mma_eligible(const BwdParams<__nv_bfloat16>& p) {
@@ -1319,68 +1293,54 @@ inline bool mma_eligible(const BwdParams<__nv_bfloat16>& p) {
   return p.Dh == 64 || p.Dh == 128;
 }
 
-template <int D>
-int launch_mma(const BwdParams<__nv_bfloat16>& p, int batch,
-               cudaStream_t stream) {
-  const size_t tiles = 4 * kTile * (D + 8) * sizeof(__nv_bfloat16);
-  const size_t smem_dkdv = tiles + 3 * kTile * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)tiles);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attn_bwd_dkdv_mma_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_dkdv);
-  if (err != cudaSuccess) return (int)err;
-  const int bh = batch * p.H;
-  attn_bwd_dq_mma_kernel<D>
-      <<<dim3(bh, (p.Sq + kTile - 1) / kTile), kMmaThreads, tiles, stream>>>(
-          p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  attn_bwd_dkdv_mma_kernel<D><<<dim3(bh, (p.Sk + kTile - 1) / kTile),
-                                kMmaThreads, smem_dkdv, stream>>>(p);
-  return (int)cudaGetLastError();
+template <int MAXD>
+size_t dq_smem_bytes(int dh) {
+  constexpr int kT = Scalar<MAXD>::kT;
+  return sizeof(float) * (size_t)(4 * kT * (dh + 1) + kT * (kT + 1));
 }
 
-inline size_t dq_smem_bytes(int dh) {
-  return sizeof(float) *
-         (size_t)(4 * kTile * (dh + 1) + kTile * (kTile + 1));
-}
-
-inline size_t dkdv_smem_bytes(int dh) {
-  return sizeof(float) *
-         (size_t)(4 * kTile * (dh + 1) + 2 * kTile * (kTile + 1));
+template <int MAXD>
+size_t dkdv_smem_bytes(int dh) {
+  constexpr int kT = Scalar<MAXD>::kT;
+  return sizeof(float) * (size_t)(4 * kT * (dh + 1) + 2 * kT * (kT + 1));
 }
 
 template <typename T>
 bool valid_shape(const BwdParams<T>& p, int batch) {
   return p.Dh >= 1 && p.Dh <= kMaxHeadDim && p.Sq >= 1 && p.Sk >= 1 &&
-         batch >= 1 && p.H >= 1 && (p.Sq + kTile - 1) / kTile <= 65535 &&
-         (p.Sk + kTile - 1) / kTile <= 65535;
+         batch >= 1 && p.H >= 1 && (p.Sq + 31) / 32 <= 65535 &&
+         (p.Sk + 31) / 32 <= 65535;
 }
 
-template <typename T>
-int launch_scalar(const BwdParams<T>& p, int batch, cudaStream_t stream) {
-  const size_t smem_dq = dq_smem_bytes(p.Dh);
-  const size_t smem_dkdv = dkdv_smem_bytes(p.Dh);
+template <int MAXD, typename T>
+int launch_scalar_at(const BwdParams<T>& p, int batch, cudaStream_t stream) {
+  constexpr int kT = Scalar<MAXD>::kT, kThr = Scalar<MAXD>::kThr;
+  const size_t smem_dq = dq_smem_bytes<MAXD>(p.Dh);
+  const size_t smem_dkdv = dkdv_smem_bytes<MAXD>(p.Dh);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_dq);
+      attn_bwd_dq_kernel<T, MAXD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<T>,
+  err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<T, MAXD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_dkdv);
   if (err != cudaSuccess) return (int)err;
   const int bh = batch * p.H;
-  attn_bwd_dq_kernel<T>
-      <<<dim3(bh, (p.Sq + kTile - 1) / kTile), kThreads, smem_dq, stream>>>(p);
+  attn_bwd_dq_kernel<T, MAXD>
+      <<<dim3(bh, div_up(p.Sq, kT)), kThr, smem_dq, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  attn_bwd_dkdv_kernel<T>
-      <<<dim3(bh, (p.Sk + kTile - 1) / kTile), kThreads, smem_dkdv, stream>>>(
-          p);
+  attn_bwd_dkdv_kernel<T, MAXD>
+      <<<dim3(bh, div_up(p.Sk, kT)), kThr, smem_dkdv, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The recomputing scalar pair: heads up to 128 take the instance they
+// always took, wider ones (up to kMaxHeadDim = 256) 32-row tiles.
+template <typename T>
+int launch_scalar(const BwdParams<T>& p, int batch, cudaStream_t stream) {
+  return p.Dh <= 128 ? launch_scalar_at<128>(p, batch, stream)
+                     : launch_scalar_at<kMaxHeadDim>(p, batch, stream);
 }
 
 // The LSE bodies also read O (16-byte aligned rows) and need lse and the
@@ -1432,31 +1392,50 @@ int launch_one_tile(const BwdParams<__nv_bfloat16>& p, int batch,
   return (int)cudaGetLastError();
 }
 
-// Runs both kernels over `batch` samples of p's strided views. LSE: the
-// caller gives the forward's lse and output (p.lse, p.out, p.so), which the
-// bf16 tensor-core bodies read; the scalar body recomputes in every case.
-template <bool LSE>
-int launch(const BwdParams<float>& p, int batch, cudaStream_t stream) {
+template <int D>
+int launch_stream(const BwdParams<__nv_bfloat16>& p, int batch,
+                  cudaStream_t stream) {
+  // K and V, the P and dS tiles, and two stages of (Q, dO, O, lse).
+  constexpr size_t smem =
+      ((2 * kTile + 3 * 2 * kStreamRows) * (D + 8) +
+       2 * kStreamRows * kTile + 2 * 2 * kStreamRows) *
+      sizeof(__nv_bfloat16);
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_stream_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_stream_kernel<D>
+      <<<batch * p.H, kStreamThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// Runs the backward over `batch` samples of p's strided views. fp32 takes
+// the recomputing scalar pair (the forward's lse and O are not read).
+inline int launch(const BwdParams<float>& p, int batch,
+                  cudaStream_t stream) {
   if (!valid_shape(p, batch)) return (int)cudaErrorInvalidValue;
   return launch_scalar(p, batch, stream);
 }
 
-template <bool LSE>
-int launch(const BwdParams<__nv_bfloat16>& p, int batch,
-           cudaStream_t stream) {
+// bf16: with 16-byte aligned rows and Dh 64 or 128 the LSE bodies, which
+// need the forward's lse and O (p.lse, p.out, p.so; cudaErrorInvalidValue
+// without them): one kernel for Sk <= 64 (attn_bwd_one_tile_kernel when
+// Sq <= 64 too, else attn_bwd_stream_kernel), two above. Every other case
+// (Dh 256 among them) takes the recomputing scalar pair.
+inline int launch(const BwdParams<__nv_bfloat16>& p, int batch,
+                  cudaStream_t stream) {
   if (!valid_shape(p, batch)) return (int)cudaErrorInvalidValue;
   if (!mma_eligible(p)) return launch_scalar(p, batch, stream);
-  if constexpr (LSE) {
-    if (!lse_eligible(p, batch)) return (int)cudaErrorInvalidValue;
-    if (p.Sq <= kTile && p.Sk <= kTile)
+  if (!lse_eligible(p, batch)) return (int)cudaErrorInvalidValue;
+  if (p.Sk <= kTile) {
+    if (p.Sq <= kTile)
       return p.Dh == 128 ? launch_one_tile<128>(p, batch, stream)
                          : launch_one_tile<64>(p, batch, stream);
-    return p.Dh == 128 ? launch_lse_mma<128>(p, batch, stream)
-                       : launch_lse_mma<64>(p, batch, stream);
-  } else {
-    return p.Dh == 128 ? launch_mma<128>(p, batch, stream)
-                       : launch_mma<64>(p, batch, stream);
+    return p.Dh == 128 ? launch_stream<128>(p, batch, stream)
+                       : launch_stream<64>(p, batch, stream);
   }
+  return p.Dh == 128 ? launch_lse_mma<128>(p, batch, stream)
+                     : launch_lse_mma<64>(p, batch, stream);
 }
 
 }  // namespace attn_bwd

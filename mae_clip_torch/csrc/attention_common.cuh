@@ -15,7 +15,9 @@
 
 namespace {
 
-constexpr int kMaxHeadDim = 128;
+// The widest head any body takes. The scalar bodies take it as a template
+// parameter (128 or 256), so heads up to 128 keep their register arrays.
+constexpr int kMaxHeadDim = 256;
 // Masked keys score -0.7 * FLT_MAX (finite, so a fully masked row keeps
 // uniform weights over its Sk keys); keys past Sk score -inf.
 constexpr float kMaskValue = -0.7f * FLT_MAX;

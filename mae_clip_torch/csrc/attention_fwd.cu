@@ -23,10 +23,10 @@
 //   s = (q . k) * scale, fp32; masked keys get -0.7 * FLT_MAX; keys past Sk
 //   (the ragged edge of the last key tile) get -inf and weigh nothing;
 //   online softmax over 64-key tiles with m/l/acc in fp32;
-//   out = acc / max(l, 1e-30), rounded to the input type. The packed entry
-//   also writes the row log-sum-exp lse = m + log(max(l, 1e-30)) (fp32,
-//   (B*H, S)) when given an lse pointer: the training path, whose backward
-//   (#3) reads it instead of recomputing the row statistics.
+//   out = acc / max(l, 1e-30), rounded to the input type. Both entries
+//   also write the row log-sum-exp lse = m + log(max(l, 1e-30)) (fp32,
+//   (B*H, Sq)) when given an lse pointer: the training path, whose backward
+//   (#3, #4) reads it instead of recomputing the row statistics.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16), reckoned from the
 // work each call must do:
@@ -37,7 +37,11 @@
 //     The pipelined body (attention_fwd.cuh) overlaps the loads with the
 //     products and skips the ragged key chunks.
 //   * flash, DistilBERT at B=16, H=6, S=64, Dh=128, bf16: ~6.3 MB moved ->
-//     ~1.9 us; launch overhead dominates at this size.
+//     ~1.9 us; launch overhead dominates at this size. The CrossMAE
+//     decoder, q (256, 2, 147, 128), k/v (256, 2, 50, 128), with lse: reads
+//     32.4 MB, writes 19.6 MB -> ~15.5 us against 4.8 GFLOP: bound by
+//     bytes. One key tile: K and V are read once per batch*head
+//     (attn_fwd_stream_kernel).
 //
 // The kernel bodies live in attention_fwd.cuh (shared with the block
 // stacks, which normalise P before rounding it); this file binds them to the
@@ -54,14 +58,15 @@ using attn_fwd::Params;
 
 template <typename T>
 int flash(const void* q, const void* k, const void* v, const float* mask,
-          void* o, const long long* strides, int B, int H, int Sq, int Sk,
-          int Dh, float scale, cudaStream_t stream) {
+          void* o, float* lse, const long long* strides, int B, int H,
+          int Sq, int Sk, int Dh, float scale, cudaStream_t stream) {
   Params<T> p = {};
   p.q = static_cast<const T*>(q);
   p.k = static_cast<const T*>(k);
   p.v = static_cast<const T*>(v);
   p.o = static_cast<T*>(o);
   p.mask = mask;
+  p.lse = lse;
   p.sq = {strides[0], strides[1], strides[2]};
   p.sk = {strides[3], strides[4], strides[5]};
   p.sv = {strides[6], strides[7], strides[8]};
@@ -102,19 +107,20 @@ int packed(const void* qkv, const float* mask, void* o, float* lse, int B,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides, (batch,
-// head, row) for q, k, v and out in that order. Returns a cudaError_t.
+// head, row) for q, k, v and out in that order. lse: (B*H, Sq) fp32, or
+// null for no lse. Returns a cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        const float* mask, void* out,
+                        const float* mask, void* out, float* lse,
                         const long long* strides, int B, int H, int Sq,
                         int Sk, int Dh, float scale, int dtype,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return flash<float>(q, k, v, mask, out, strides, B, H, Sq, Sk, Dh, scale,
-                        s);
+    return flash<float>(q, k, v, mask, out, lse, strides, B, H, Sq, Sk, Dh,
+                        scale, s);
   if (dtype == 1)
-    return flash<__nv_bfloat16>(q, k, v, mask, out, strides, B, H, Sq, Sk,
-                                Dh, scale, s);
+    return flash<__nv_bfloat16>(q, k, v, mask, out, lse, strides, B, H, Sq,
+                                Sk, Dh, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,8 +10,8 @@
 //   NORM = false (#1, #2): online softmax over 64-key tiles with m/l/acc in
 //     fp32, P rounded to the input type unnormalised,
 //     out = acc / max(l, 1e-30). Where the caller passes p.lse (the
-//     training path of #1), the row log-sum-exp lse = m + log(max(l,
-//     1e-30)) is written too, fp32 (B*H, Sq), for the backward (#3).
+//     training path of #1 and #2), the row log-sum-exp lse = m + log(max(l,
+//     1e-30)) is written too, fp32 (B*H, Sq), for the backward (#3, #4).
 //   NORM = true (the block stacks, after the TPU stack kernel's single-shot
 //     softmax): a first pass over the key tiles gives the row max m and sum
 //     l; the second forms P = exp(s - m) / max(l, 1e-30) in fp32, rounds it
@@ -40,18 +40,24 @@
 //     2 with the scale folded into one FMA before ex2.approx; a full tile
 //     with no mask skips the masking. Shared memory: one Q, one K and one
 //     V tile, 52 KB at Dh = 128; 168 registers, three blocks per SM.
+//   * attn_fwd_stream_kernel (NORM = false, Sk <= 64 < Sq: the CrossMAE
+//     decoder's 147 queries on 50 keys): one block per batch*head loads K
+//     and V once and its warps stream the 16-row query chunks (see the
+//     kernel); four blocks an SM. The pipelined body would read K and V
+//     once per 64-query tile and run a tile of 19 rows.
 //   * attn_fwd_norm_kernel (NORM = true): each tile loaded into registers
 //     and stored to shared memory between two __syncthreads, fragments by
 //     32-bit and 16-bit shared loads; 35 KB of static shared memory.
 //
-// Every other case (fp32 inputs, other head dims, strides not a multiple of
-// 8 elements): attn_fwd_kernel, one block of 256 threads with scalar fp32
-// FMAs. The Q tile stays in shared memory (as fp32) for the whole key loop;
-// each thread owns 4 query rows x 4 keys of the score tile and the same 4
-// rows x Dh/16 columns of the accumulator, so the row max and sum reduce
-// over a half-warp with shuffles. Its dynamic shared memory is ~113 KB at
-// Dh=128, above the 48 KB static limit, so the launcher raises the limit
-// with cudaFuncSetAttribute first.
+// Every other case (fp32 inputs, other head dims up to kMaxHeadDim = 256,
+// strides not a multiple of 8 elements): attn_fwd_kernel, one block of 256
+// threads with scalar fp32 FMAs. The Q tile stays in shared memory (as
+// fp32) for the whole key loop; each thread owns 4 query rows x 4 keys of
+// the score tile and the same 4 rows x Dh/16 columns of the accumulator
+// (sized by the widest head of the instance, 128 or 256), so the row max
+// and sum reduce over a half-warp with shuffles. Its dynamic shared memory
+// is ~113 KB at Dh=128 and ~209 KB at 256, above the 48 KB static limit,
+// so the launcher raises the limit with cudaFuncSetAttribute first.
 
 #pragma once
 
@@ -69,7 +75,6 @@ namespace attn_fwd {
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 256;
-constexpr int kColsPerThread = kMaxHeadDim / 16;
 
 template <typename T>
 struct Params {
@@ -84,8 +89,11 @@ struct Params {
   float scale;
 };
 
-template <typename T, bool NORM>
+// MAXD: the widest head the instance takes (128 or 256); it sizes the
+// accumulator, Dh/16 columns per thread.
+template <typename T, bool NORM, int MAXD>
 __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params<T> p) {
+  constexpr int kColsPerThread = MAXD / 16;
   extern __shared__ float smem[];
   const int ld = p.Dh + 1;  // padded row: no bank conflicts on column walks
   float* qs = smem;                      // kBlockQ x ld
@@ -571,6 +579,182 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
   }
 }
 
+// Sk <= 64 < Sq (the CrossMAE decoder's cross-attention: 147 queries on 50
+// keys): one block per batch*head loads K and V once, and its 4 warps
+// stream the 16-row query chunks, warp w taking chunks w, w + 4, ... into
+// its own chunk buffer (cp.async); after K and V have landed no warp waits
+// for another. One key tile: the softmax is exact in one pass (no
+// rescaling of O). O = P V is formed in two column halves, and goes through
+// the chunk's buffer for 16-byte stores. That keeps a block at 52 KB of
+// shared memory and 128 registers a thread, so four blocks fit an SM: the
+// decoder's 512 blocks all run in one wave, and 16 warps an SM hide each
+// other's loads (a second buffer per warp to prefetch the next chunk
+// costs the fourth block, and measured slower).
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 4)
+    attn_fwd_stream_kernel(Params<__nv_bfloat16> p) {
+  constexpr int kLd = D + 8, kPieces = D / 8, kCols = D / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + kBlockK * kLd;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  __nv_bfloat16* qs = vs + kBlockK * kLd + warp * 16 * kLd;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int nk = div_up(p.Sk, 16), nq = div_up(p.Sq, 16);  // 16-row chunks
+  const __nv_bfloat16* qb = p.q + b * p.sq.b + h * p.sq.h;
+  __nv_bfloat16* ob = p.o + b * p.so.b + h * p.so.h;
+  const float* mb = p.mask ? p.mask + (long long)b * p.Sk : nullptr;
+
+  load_tile_async<D>(ks, p.k + b * p.sk.b + h * p.sk.h, 0, 16 * nk, p.Sk,
+                     p.sk.r);
+  load_tile_async<D>(vs, p.v + b * p.sv.b + h * p.sv.h, 0, 16 * nk, p.Sk,
+                     p.sv.r);
+  cp_async_commit();
+  // Query rows row0 .. row0 + 15 into the warp's buffer, zero past Sq; the
+  // warp's lanes copy 16 bytes each per step.
+  auto load_chunk = [&](__nv_bfloat16* dst, int row0) {
+#pragma unroll
+    for (int j = 0; j < 16 * kPieces / 32; ++j) {
+      const int i = lane + 32 * j;
+      const int r = i / kPieces, c = (i % kPieces) * 8, row = row0 + r;
+      cp_async16(dst + r * kLd + c, row < p.Sq ? qb + row * p.sq.r + c : qb,
+                 row < p.Sq);
+    }
+  };
+  if (warp < nq) load_chunk(qs, 16 * warp);
+  cp_async_commit();
+
+  // This lane's keys 8n + 2t + e: bit 2n + e of `inside` (below Sk) and of
+  // `valid` (below Sk and not masked).
+  uint32_t inside = 0, valid = 0;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = n * 8 + 2 * t + e;
+      if (key < p.Sk) {
+        inside |= 1u << (2 * n + e);
+        if (mb == nullptr || mb[key] > 0.f) valid |= 1u << (2 * n + e);
+      }
+    }
+  const float sc2 = p.scale * kLog2e;
+  cp_async_wait<0>();  // K, V and the first chunks have landed ...
+  __syncthreads();     // ... for every thread
+
+  for (int c = warp; c < nq; c += 4) {
+    cp_async_wait<0>();  // this chunk has landed ...
+    __syncwarp();        // ... for every lane of the warp
+
+    // S = Q K^T over the live key chunks: s[n][2 * hr + e] is row g + 8 hr,
+    // key 8n + 2t + e.
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t a[4], bk[4][4];
+      frag_a<kLd>(a, qs, 0, kc * 16);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc)
+        if (cc < nk) frag_b_rows_n<kLd>(bk[cc], ks, cc * 16, kc * 16);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        if (cc >= nk) continue;
+        mma_bf16(s[2 * cc], a, bk[cc][0], bk[cc][1]);
+        mma_bf16(s[2 * cc + 1], a, bk[cc][2], bk[cc][3]);
+      }
+    }
+    // The softmax in base 2 on s * scale * log2(e): masked keys score
+    // -0.7 * FLT_MAX (so a row whose keys are all masked has uniform
+    // weights), keys past Sk -inf. m is the row's max; l its sum.
+    float m[2], l[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const uint32_t bit = 1u << (2 * n + e);
+          float& x = s[n][2 * hr + e];
+          x = !(inside & bit) ? -INFINITY
+                              : ((valid & bit) ? x * sc2 : kMaskValue);
+          mx = fmaxf(mx, x);
+        }
+      m[hr] = quad_max(mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[n][2 * hr + e];
+          x = fast_exp2(x - m[hr]);
+          sum += x;
+        }
+      l[hr] = fmaxf(quad_sum(sum), 1e-30f);
+    }
+
+    // O = P V by column halves, P repacked from the S accumulators as
+    // 16-key A fragments; O / l into the chunk's buffer (its Q is read).
+    __syncwarp();
+#pragma unroll
+    for (int ps = 0; ps < 2; ++ps) {
+      float o[kCols / 8][4];
+#pragma unroll
+      for (int n = 0; n < kCols / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        if (cc >= nk) continue;
+        uint32_t pa[4];
+        c_to_a(pa, s, cc);
+#pragma unroll
+        for (int np = 0; np < kCols / 16; ++np) {
+          uint32_t bv[4];
+          frag_b_rows_k<kLd>(bv, vs, cc * 16, ps * kCols + np * 16);
+          mma_bf16(o[2 * np], pa, bv[0], bv[1]);
+          mma_bf16(o[2 * np + 1], pa, bv[2], bv[3]);
+        }
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const float inv = 1.f / l[hr];
+#pragma unroll
+        for (int n = 0; n < kCols / 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(
+              qs + (g + 8 * hr) * kLd + ps * kCols + n * 8 + 2 * t) =
+              __floats2bfloat162_rn(o[n][2 * hr] * inv,
+                                    o[n][2 * hr + 1] * inv);
+      }
+    }
+    // The row log-sum-exp where the caller asks for it; then the stores.
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = 16 * c + g + 8 * hr;
+      if (p.lse != nullptr && t == 0 && row < p.Sq)
+        p.lse[(long long)bh * p.Sq + row] =
+            m[hr] <= 0.5f * kMaskValue ? kMaskValue
+                                       : (m[hr] + log2f(l[hr])) * kLn2;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 16 * kPieces / 32; ++j) {
+      const int i = lane + 32 * j;
+      const int r = i / kPieces, col = (i % kPieces) * 8, row = 16 * c + r;
+      if (row < p.Sq)
+        *reinterpret_cast<uint4*>(ob + row * p.so.r + col) =
+            *reinterpret_cast<const uint4*>(qs + r * kLd + col);
+    }
+    __syncwarp();  // the buffer is read: it takes the warp's next chunk
+    if (c + 4 < nq) load_chunk(qs, 16 * (c + 4));
+    cp_async_commit();
+  }
+}
+
 // The tensor-core kernel needs 16-byte aligned rows: every pointer on a
 // 16-byte boundary and every stride a multiple of 8 elements.
 inline bool mma_eligible(const Params<__nv_bfloat16>& p) {
@@ -594,16 +778,24 @@ inline bool valid_shape(int batch, int H, int Sq, int Sk, int Dh) {
          H >= 1 && (long long)batch * H <= 65535;
 }
 
-template <bool NORM, typename T>
-int launch_scalar(const Params<T>& p, int batch, cudaStream_t stream) {
+template <bool NORM, int MAXD, typename T>
+int launch_scalar_at(const Params<T>& p, int batch, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.Dh);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_kernel<T, NORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      attn_fwd_kernel<T, NORM, MAXD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.Sq + kBlockQ - 1) / kBlockQ, batch * p.H);
-  attn_fwd_kernel<T, NORM><<<grid, kThreads, smem, stream>>>(p);
+  attn_fwd_kernel<T, NORM, MAXD><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// Heads up to 128 take the instance they always took; wider ones (up to
+// kMaxHeadDim = 256: 214,016 bytes of shared memory) the wide one.
+template <bool NORM, typename T>
+int launch_scalar(const Params<T>& p, int batch, cudaStream_t stream) {
+  return p.Dh <= 128 ? launch_scalar_at<NORM, 128>(p, batch, stream)
+                     : launch_scalar_at<NORM, kMaxHeadDim>(p, batch, stream);
 }
 
 // Runs the forward over `batch` samples of p's strided views.
@@ -627,12 +819,33 @@ int launch_pipe(const Params<__nv_bfloat16>& p, int batch,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_stream(const Params<__nv_bfloat16>& p, int batch,
+                  cudaStream_t stream) {
+  // K, V, and one 16-row chunk buffer per warp.
+  constexpr size_t smem =
+      (2 * kBlockK + (kMmaThreads / 32) * 16) * (D + 8) *
+      sizeof(__nv_bfloat16);
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_stream_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_fwd_stream_kernel<D><<<batch * p.H, kMmaThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <bool NORM>
 int launch(const Params<__nv_bfloat16>& p, int batch, cudaStream_t stream) {
   if (!valid_shape(batch, p.H, p.Sq, p.Sk, p.Dh))
     return (int)cudaErrorInvalidValue;
   if (!mma_eligible(p)) return launch_scalar<NORM>(p, batch, stream);
   if constexpr (!NORM) {
+    // One key tile and more than one query tile: K and V once per
+    // batch*head. Else (and so always for the packed #1, Sq = Sk) the
+    // pipelined body.
+    if (p.Sk <= kBlockK && p.Sq > kBlockQ)
+      return p.Dh == 128 ? launch_stream<128>(p, batch, stream)
+                         : launch_stream<64>(p, batch, stream);
     return p.Dh == 128 ? launch_pipe<128>(p, batch, stream)
                        : launch_pipe<64>(p, batch, stream);
   } else {

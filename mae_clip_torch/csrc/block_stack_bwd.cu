@@ -428,7 +428,7 @@ int stack_bwd(const T* qstack, const T* kv, const void* const* w_,
                       buf.wpart, dwl(kWproj), st));
     CHECK(bias_grad((const float*)buf.dx1_f, M, D, buf.colpart,
                     dwl(kBproj), st));
-    CHECK(attn_bwd::launch</*LSE=*/true>(ab, s.B, st));
+    CHECK(attn_bwd::launch(ab, s.B, st));
     g = bwd_gemm((const T*)buf.dqp_t, wl(kWq), M, D, D, kEpiF32);
     g.outf = buf.dh_f;
     CHECK(gemm(g, 1, st));

@@ -111,7 +111,8 @@ def load_attention() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build("attention_fwd.cu")))
     vp, i32, f32 = _VP, _I32, _F32
     lib.flash_attention_fwd.argtypes = [
-        vp, vp, vp, vp, vp, _STRIDES, i32, i32, i32, i32, i32, f32, i32, vp]
+        vp, vp, vp, vp, vp, vp, _STRIDES, i32, i32, i32, i32, i32, f32, i32,
+        vp]
     lib.flash_attention_fwd.restype = i32
     lib.qkv_packed_attention_fwd.argtypes = [
         vp, vp, vp, vp, i32, i32, i32, i32, f32, i32, vp]
@@ -127,7 +128,7 @@ def load_attention_bwd() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build("attention_bwd.cu")))
     vp, i32, f32 = _VP, _I32, _F32
     lib.flash_attention_bwd.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, vp, vp, _STRIDES,
+        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, _STRIDES,
         i32, i32, i32, i32, i32, f32, i32, vp]
     lib.flash_attention_bwd.restype = i32
     lib.qkv_packed_attention_bwd.argtypes = [

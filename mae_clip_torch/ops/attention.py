@@ -13,20 +13,23 @@ key mask, or the packed ``(B, S, 3*H*Dh)`` output of a fused qkv matmul
   at ``-0.7 * f32max``, normaliser floored at ``1e-30``, fp32 softmax; the
   backward recomputes P, rounds P and dS to the input type before their
   products and zeroes dS at masked keys), as the TPU kernels compute them.
-* ``qkv_packed_attention_lse_ref`` / ``qkv_packed_attention_bwd_lse_ref``:
-  the plain versions of kernels #1 and #3 as the training path runs them on
-  the card: the forward also gives the row log-sum-exp, and the backward
-  takes the forward's output and log-sum-exp instead of recomputing the row
+* ``flash_attention_lse_ref`` / ``flash_attention_bwd_lse_ref``: the plain
+  versions of kernels #2 and #4 as the training path runs them on the card:
+  the forward also gives the row log-sum-exp, and the backward takes the
+  forward's output and log-sum-exp instead of recomputing the row
   statistics (FlashAttention-2's formulation; equal in exact arithmetic).
+  ``qkv_packed_attention_lse_ref`` / ``qkv_packed_attention_bwd_lse_ref``
+  (#1 and #3) are the same on the packed layout.
 * ``flash_attention`` / ``qkv_packed_attention``: the kernel wrappers, one
   ``torch.autograd.Function`` each, as the JAX package's ``custom_vjp``s. On
   a CPU tensor both directions run their plain versions, and the forward
   saves only its inputs and the mask, as JAX's residuals are; on a CUDA
   tensor they launch the hand-written kernels of ``csrc/attention_fwd.cu``
-  and ``csrc/attention_bwd.cu`` or raise. There the packed forward also
-  saves its output and the row log-sum-exp for kernel #3 (more than JAX's
-  residuals: the output is held anyway for the projection's backward, so it
-  costs a reference; the log-sum-exp is 4 bytes a row and head). Each
+  and ``csrc/attention_bwd.cu`` or raise. There each forward, when its
+  inputs need a gradient, also writes the row log-sum-exp and saves it with
+  its output for the backward kernel (#3, #4) (more than JAX's residuals:
+  the output is held anyway for the projection's backward, so it costs a
+  reference; the log-sum-exp is 4 bytes a row and head). Each
   wrapper counts its kernel launches in ``<wrapper>.launches`` (forward) and
   ``<wrapper>.bwd_launches``.
 * ``fused_qkv_attention`` / ``multi_head_attention``: the dispatchers the
@@ -48,7 +51,7 @@ from typing import Optional
 import torch
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256  # heads above 128 take the kernels' scalar bodies
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _COUNT_LOCK = threading.Lock()  # serving threads launch concurrently
 
@@ -85,9 +88,14 @@ def _scores(q: torch.Tensor, k: torch.Tensor,
     return s
 
 
-def _flash_fwd_ref(q, k, v, key_valid, sm_scale):
-    """(out, lse): the flash forward and its row log-sum-exp
-    m + log(max(l, 1e-30)), fp32 (B, H, Sq)."""
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor,
+                            key_valid: Optional[torch.Tensor] = None,
+                            sm_scale: Optional[float] = None):
+    """Plain version of the flash kernel on the training path: (out, lse),
+    out as ``flash_attention_ref`` gives it and lse the row log-sum-exp
+    m + log(max(l, 1e-30)) of the masked, scaled scores, fp32 (B, H, Sq)
+    (MASK_VALUE on a row whose keys are all masked)."""
     s = _scores(q, k, key_valid, _scale(q.shape[-1], sm_scale))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -100,7 +108,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_valid: Optional[torch.Tensor] = None,
                         sm_scale: Optional[float] = None) -> torch.Tensor:
     """Plain version of the flash kernel: q/k/v (B, H, S, Dh) -> (B, H, Sq, Dh)."""
-    return _flash_fwd_ref(q, k, v, key_valid, sm_scale)[0]
+    return flash_attention_lse_ref(q, k, v, key_valid, sm_scale)[0]
 
 
 def _unpack(qkv: torch.Tensor, n_heads: int):
@@ -129,7 +137,8 @@ def qkv_packed_attention_lse_ref(qkv: torch.Tensor,
     out as ``qkv_packed_attention_ref`` gives it and lse the row
     log-sum-exp of the masked, scaled scores, fp32 (B*H, S)."""
     b, s, three_hd = qkv.shape
-    ctx, lse = _flash_fwd_ref(*_unpack(qkv, n_heads), key_valid, sm_scale)
+    ctx, lse = flash_attention_lse_ref(*_unpack(qkv, n_heads), key_valid,
+                                       sm_scale)
     out = ctx.permute(0, 2, 1, 3).reshape(b, s, three_hd // 3)
     return out, lse.reshape(b * n_heads, s)
 
@@ -182,33 +191,29 @@ def qkv_packed_attention_bwd_ref(qkv: torch.Tensor,
     return _pack_grads(grads, b, s, three_hd)
 
 
-def qkv_packed_attention_bwd_lse_ref(qkv: torch.Tensor,
-                                     key_valid: Optional[torch.Tensor],
-                                     n_heads: int, sm_scale: Optional[float],
-                                     out: torch.Tensor, lse: torch.Tensor,
-                                     d_out: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel #3 as the training path runs it: d_qkv from
-    the forward's output ``out`` (B, S, H*Dh) and row log-sum-exp ``lse``
-    (B*H, S) instead of recomputed row statistics. P = exp(s - lse) in fp32
-    (uniform 1/S on a row whose keys are all masked, whose lse is
-    MASK_VALUE), delta = rowsum(dO * out) in fp32 (equal to rowsum(P * dP)
-    in exact arithmetic); the casts and masking of
-    ``qkv_packed_attention_bwd_ref``."""
-    b, s, three_hd = qkv.shape
-    d = three_hd // (3 * n_heads)
-    q, k, v = _unpack(qkv, n_heads)
-    scale = _scale(d, sm_scale)
-
-    def heads(x):
-        return x.reshape(b, s, n_heads, d).permute(0, 2, 1, 3)
-
-    lse = lse.reshape(b, n_heads, s, 1)
+def flash_attention_bwd_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor,
+                                key_valid: Optional[torch.Tensor],
+                                sm_scale: Optional[float],
+                                out: torch.Tensor, lse: torch.Tensor,
+                                d_out: torch.Tensor):
+    """Plain version of kernel #4 as the training path runs it: (dq, dk, dv)
+    from the forward's output ``out`` (B, H, Sq, Dh) and row log-sum-exp
+    ``lse`` (B*H*Sq values, fp32) instead of recomputed row statistics.
+    P = exp(s - lse) in fp32 (uniform 1/Sk on a row whose keys are all
+    masked, whose lse is MASK_VALUE), delta = rowsum(dO * out) in fp32
+    (equal to rowsum(P * dP) in exact arithmetic); the casts and masking of
+    ``flash_attention_bwd_ref``."""
+    b, h, sq, _ = q.shape
+    scale = _scale(q.shape[-1], sm_scale)
+    lse = lse.reshape(b, h, sq, 1)
     p = torch.exp(_scores(q, k, key_valid, scale) - lse)
-    p = torch.where(lse < 0.5 * MASK_VALUE, torch.full_like(p, 1.0 / s), p)
-    do = heads(d_out).to(v.dtype).float()
+    p = torch.where(lse < 0.5 * MASK_VALUE,
+                    torch.full_like(p, 1.0 / k.shape[2]), p)
+    do = d_out.to(v.dtype).float()
     dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), do)
     dp = torch.matmul(do, v.float().transpose(-1, -2))
-    delta = (do * heads(out).float()).sum(dim=-1, keepdim=True)
+    delta = (do * out.float()).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
     if key_valid is not None:
         ds = torch.where(key_valid[:, None, None, :] > 0, ds,
@@ -216,7 +221,26 @@ def qkv_packed_attention_bwd_lse_ref(qkv: torch.Tensor,
     ds = ds.to(q.dtype).float()
     dq = torch.matmul(ds, k.float()) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
-    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def qkv_packed_attention_bwd_lse_ref(qkv: torch.Tensor,
+                                     key_valid: Optional[torch.Tensor],
+                                     n_heads: int, sm_scale: Optional[float],
+                                     out: torch.Tensor, lse: torch.Tensor,
+                                     d_out: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel #3 as the training path runs it: d_qkv from
+    the forward's output ``out`` (B, S, H*Dh) and row log-sum-exp ``lse``
+    (B*H, S), by ``flash_attention_bwd_lse_ref`` on the heads."""
+    b, s, three_hd = qkv.shape
+    d = three_hd // (3 * n_heads)
+
+    def heads(x):
+        return x.reshape(b, s, n_heads, d).permute(0, 2, 1, 3)
+
+    grads = flash_attention_bwd_lse_ref(*_unpack(qkv, n_heads), key_valid,
+                                        sm_scale, heads(out), lse,
+                                        heads(d_out))
     return _pack_grads(grads, b, s, three_hd)
 
 
@@ -271,7 +295,9 @@ def _strides(*tensors: torch.Tensor):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _launch_flash(q, k, v, mask, scale: float) -> torch.Tensor:
+def _launch_flash(q, k, v, mask, scale: float, with_lse: bool = False):
+    """(out, lse): kernel #2, with the row log-sum-exp (B, H, Sq) in fp32
+    when ``with_lse`` (the training path), else None."""
     from mae_clip_torch.ops._build import load_attention
 
     lib = load_attention()
@@ -281,21 +307,29 @@ def _launch_flash(q, k, v, mask, scale: float) -> torch.Tensor:
     # callers' head merge back to (B, Sq, H*Dh) is then free.
     out = torch.empty((b, sq, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, sq), dtype=torch.float32,
+                      device=q.device) if with_lse else None
     err = lib.flash_attention_fwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out),
+        _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out), _ptr(lse),
         _strides(q, k, v, out), b, h, sq, sk, d, scale,
         _DTYPE_CODES[q.dtype], _stream(q))
     _raise_on_error(err, lib.attention_error_string, "flash_attention")
     _count(flash_attention, "launches")
-    return out
+    return out, lse
 
 
-def _launch_flash_bwd(q, k, v, mask, scale: float, d_out):
+def _launch_flash_bwd(q, k, v, mask, scale: float, out, lse, d_out):
+    """Kernel #4: (dq, dk, dv) from the forward's ``out`` and ``lse``."""
     from mae_clip_torch.ops._build import load_attention_bwd
 
     lib = load_attention_bwd()
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    if (out.shape != q.shape or out.dtype != q.dtype or out.stride(-1) != 1
+            or lse.shape != (b, h, sq) or lse.dtype != torch.float32
+            or not lse.is_contiguous()):
+        raise ValueError("flash_attention backward: out and lse must be the "
+                         "forward's")
     if d_out.stride(-1) != 1:
         d_out = d_out.contiguous()
     # empty_like keeps a dense input's strides: the gradient of a head-split
@@ -304,9 +338,9 @@ def _launch_flash_bwd(q, k, v, mask, scale: float, d_out):
     scratch = torch.empty(3 * b * h * sq, dtype=torch.float32,
                           device=q.device)
     err = lib.flash_attention_bwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(d_out), _ptr(dq),
-        _ptr(dk), _ptr(dv), _ptr(scratch),
-        _strides(q, k, v, d_out, dq, dk, dv), b, h, sq, sk, d, scale,
+        _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out), _ptr(lse),
+        _ptr(d_out), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(scratch),
+        _strides(q, k, v, d_out, dq, dk, dv, out), b, h, sq, sk, d, scale,
         _DTYPE_CODES[q.dtype], _stream(q))
     _raise_on_error(err, lib.attention_bwd_error_string,
                     "flash_attention backward")
@@ -362,24 +396,30 @@ def _launch_packed_bwd(qkv, mask, n_heads: int, scale: float, out, lse,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Kernels #2 (forward) and #4 (backward); plain versions on the CPU."""
+    """Kernels #2 (forward) and #4 (backward); plain versions on the CPU.
+    On the card the forward writes the row log-sum-exp when q, k or v needs
+    a gradient and saves it with its output for #4."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid, scale):
-        ctx.save_for_backward(q, k, v, key_valid)
         ctx.scale = scale
         if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, key_valid)
             return flash_attention_ref(q, k, v, key_valid, scale)
-        return _launch_flash(q, k, v, key_valid, scale)
+        out, lse = _launch_flash(q, k, v, key_valid, scale,
+                                 with_lse=any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(q, k, v, key_valid, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, d_out):
-        q, k, v, key_valid = ctx.saved_tensors
+        q, k, v, key_valid, *saved = ctx.saved_tensors
         if q.device.type == "cpu":
             grads = flash_attention_bwd_ref(q, k, v, key_valid, ctx.scale,
                                             d_out)
         else:
-            grads = _launch_flash_bwd(q, k, v, key_valid, ctx.scale, d_out)
+            grads = _launch_flash_bwd(q, k, v, key_valid, ctx.scale, *saved,
+                                      d_out)
         return (*grads, None, None)
 
 

@@ -39,6 +39,9 @@ class TrainState:
         if cfg.ema_decay > 0:
             raise NotImplementedError("ema_decay > 0: EMA parameters are "
                                       "not ported")
+        if cfg.remat:
+            raise NotImplementedError("remat=True: recomputing the tower "
+                                      "blocks in the backward is not ported")
         device = next(model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(seed)
         return cls(step=0, model=model, optimizer=optimizer,

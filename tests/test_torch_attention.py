@@ -122,30 +122,78 @@ def _flash_mask(b, sk):
     return kv
 
 
-@pytest.mark.parametrize("b,h,sq,sk,d,masked", [
-    (2, 2, 21, 11, 16, True),    # Sq != Sk, S not a multiple of 8, masked
-    (1, 1, 300, 300, 8, False),  # several 128-key blocks
-])
-def test_flash_plain_backward_matches_jax(jx, b, h, sq, sk, d, masked):
-    """flash_attention_bwd_ref == jax.vjp of the Pallas flash kernel
-    (interpret mode), which runs _flash_bwd_kernel."""
+@pytest.fixture(scope="module")
+def flash_vjp(jx):
+    """``case -> (q, k, v, key_valid, d_out, out, (dq, dk, dv))``: the
+    forward and jax.vjp of the Pallas flash kernel (interpret mode), which
+    runs _flash_fwd_kernel and _flash_bwd_kernel, on seeded inputs;
+    computed once per case. With ``masked == "fully"`` row 0's keys are all
+    masked, where the Pallas kernels pad Sk (ROADMAP section 3): there the
+    reference is jax.vjp of attention_xla, whose semantics the port
+    follows."""
     import jax
 
     jax_attn, jnp = jx
-    rng = np.random.default_rng(11)
-    q, k, v = _qkv(rng, b, h, sq, sk, d)
-    g = rng.normal(size=(b, h, sq, d)).astype(np.float32)
-    kv = _flash_mask(b, sk) if masked else None
+    cache = {}
+
+    def get(b, h, sq, sk, d, masked):
+        key = (b, h, sq, sk, d, masked)
+        if key not in cache:
+            rng = np.random.default_rng(11)
+            q, k, v = _qkv(rng, b, h, sq, sk, d)
+            g = rng.normal(size=(b, h, sq, d)).astype(np.float32)
+            kv = _flash_mask(b, sk) if masked else None
+            scale = 1.0 / d ** 0.5
+            if masked == "fully":
+                kv[0] = 0
+                out, vjp = jax.vjp(lambda x, y, z: jax_attn.attention_xla(
+                    x, y, z, jnp.asarray(kv > 0), scale),
+                    *map(jnp.asarray, (q, k, v)))
+            else:
+                jkv = None if kv is None else jnp.asarray(kv)
+                out, vjp = jax.vjp(lambda x, y, z: jax_attn.flash_attention(
+                    x, y, z, jkv, scale, 128, 128, True),
+                    *map(jnp.asarray, (q, k, v)))
+            want = tuple(np.asarray(x) for x in vjp(jnp.asarray(g)))
+            cache[key] = (q, k, v, kv, g, np.asarray(out), want)
+        return cache[key]
+
+    return get
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,masked", [
+    (2, 2, 21, 11, 16, True),    # Sq != Sk, S not a multiple of 8, masked
+    (1, 1, 300, 300, 8, False),  # several 128-key blocks
+    (2, 2, 70, 13, 16, True),    # Sq > 64 >= Sk (one kernel #4 on the card)
+    (2, 2, 70, 13, 16, "fully"),  # the same with a fully masked row
+    (1, 2, 9, 7, 256, True),     # heads of 256
+])
+def test_flash_plain_backward_matches_jax(flash_vjp, b, h, sq, sk, d,
+                                          masked):
+    """Both plain backwards of kernel #4 == jax.vjp of the Pallas flash
+    kernel (interpret mode), which runs _flash_bwd_kernel: the one that
+    recomputes the statistics, and the one that takes the plain (out, lse)
+    forward's output and log-sum-exp. That forward's output == JAX's, and
+    its lse (B, H, Sq) == torch.logsumexp of the masked, scaled scores."""
+    q, k, v, kv, g, want_out, want = flash_vjp(b, h, sq, sk, d, masked)
+    qt, kt, vt, kvt = _torch(q, k, v, kv)
+    gt = torch.from_numpy(g)
     scale = 1.0 / d ** 0.5
-    jkv = None if kv is None else jnp.asarray(kv)
-    _, vjp = jax.vjp(lambda x, y, z: jax_attn.flash_attention(
-        x, y, z, jkv, scale, 128, 128, True), *map(jnp.asarray, (q, k, v)))
-    want = vjp(jnp.asarray(g))
-    got = A.flash_attention_bwd_ref(*_torch(q, k, v, kv), scale,
-                                    torch.from_numpy(g))
+    got = A.flash_attention_bwd_ref(qt, kt, vt, kvt, scale, gt)
     for name, x, y in zip("qkv", got, want):
-        np.testing.assert_allclose(x.numpy(), np.asarray(y), **TOL,
-                                   err_msg=f"d{name}")
+        np.testing.assert_allclose(x.numpy(), y, **TOL, err_msg=f"d{name}")
+    out, lse = A.flash_attention_lse_ref(qt, kt, vt, kvt, scale)
+    np.testing.assert_allclose(out.numpy(), want_out, **TOL)
+    scores = torch.matmul(qt, kt.transpose(-1, -2)) * scale
+    if kvt is not None:
+        scores = scores.masked_fill(kvt[:, None, None, :] == 0, A.MASK_VALUE)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, torch.logsumexp(scores, dim=-1),
+                               atol=1e-5, rtol=1e-6)
+    got = A.flash_attention_bwd_lse_ref(qt, kt, vt, kvt, scale, out, lse, gt)
+    for name, x, y in zip("qkv", got, want):
+        np.testing.assert_allclose(x.numpy(), y, **TOL,
+                                   err_msg=f"d{name} from out and lse")
 
 
 PACKED_BWD_CASES = [
@@ -481,11 +529,16 @@ def test_packed_backward_kernel_matches_plain_on_card(cuda, dtype, b, s,
     (3, 2, 147, 50, 128, False),   # the CrossMAE decoder's shape
     (2, 2, 300, 300, 128, True),   # several tiles each way
     (2, 3, 33, 40, 80, True),      # Dh 80
+    (3, 2, 147, 50, 64, True),     # Sk <= 64 < Sq at Dh 64
+    (3, 2, 70, 13, 128, True),     # Sk <= 64 < Sq, a ragged last stage
+    (2, 2, 147, 50, 256, True),    # Dh 256
+    (2, 3, 64, 64, 256, True),     # Dh 256, one tile each way
 ])
 def test_flash_backward_kernel_matches_plain_on_card(cuda, dtype, b, h, sq,
                                                      sk, d, masked):
     """Kernel #4 through autograd of the wrapper, on strided (B, S, H, Dh)
-    views with a fully masked row, == the plain backward."""
+    views with a fully masked row, == the plain backward that recomputes the
+    statistics and the one that takes #2's output and lse; one launch."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(3)
     q, k, v = (torch.randn(b, n, h, d, generator=gen).to(cuda, dtype)
@@ -500,22 +553,33 @@ def test_flash_backward_kernel_matches_plain_on_card(cuda, dtype, b, h, sq,
     got = torch.autograd.grad(A.flash_attention(q, k, v, kv), (q, k, v), g)
     torch.cuda.synchronize()
     assert A.flash_attention.bwd_launches == before + 1
-    want = A.flash_attention_bwd_ref(q.detach().float(), k.detach().float(),
-                                     v.detach().float(), kv, None, g.float())
+    plain = [t.detach().float() for t in (q, k, v)]
+    want = A.flash_attention_bwd_ref(*plain, kv, None, g.float())
+    for x, y in zip(got, want):
+        _close_to_plain(x, y, dtype)
+    out, lse = A._launch_flash(q.detach(), k.detach(), v.detach(), kv,
+                               d ** -0.5, with_lse=True)
+    want = A.flash_attention_bwd_lse_ref(*plain, kv, None, out.float(), lse,
+                                         g.float())
     for x, y in zip(got, want):
         _close_to_plain(x, y, dtype)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernels_on_decoder_split_views_on_card(cuda, dtype):
+@pytest.mark.parametrize("sq,sk,d", [(147, 50, 128), (147, 50, 64),
+                                     (147, 50, 256), (70, 13, 128)])
+def test_flash_kernels_on_decoder_split_views_on_card(cuda, dtype, sq, sk,
+                                                      d):
     """Kernels #2 and #4 on the CrossMAE decoder's layout: q a (B, Sq, H, Dh)
     view and k/v the two halves of one (B, Sk, 2, H, Dh) projection output,
-    seen as (B, H, Sk, Dh) with no copy. Forward and gradients (through
-    autograd, into the packed kv tensor) == the plain versions."""
+    seen as (B, H, Sk, Dh) with no copy. Forward (also writing the row
+    log-sum-exp) and gradients (through autograd, into the packed kv tensor)
+    == the plain versions; the backward also == the plain backward that
+    takes the forward's output and lse."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(4)
-    b, h, sq, sk, d = 5, 2, 147, 50, 128
+    b, h = 5, 2
     q_rows = torch.randn(b, sq, h, d, generator=gen).to(cuda, dtype)
     kv_rows = torch.randn(b, sk, 2, h, d, generator=gen).to(cuda, dtype)
     g = torch.randn(b, sq, h, d, generator=gen).to(cuda, dtype).transpose(1, 2)
@@ -532,26 +596,37 @@ def test_flash_kernels_on_decoder_split_views_on_card(cuda, dtype):
             A.flash_attention.bwd_launches) == (before[0] + 1, before[1] + 1)
     plain = [t.detach().float() for t in (q, k, v)]
     _close_to_plain(out, A.flash_attention_ref(*plain), dtype)
-    want = A.flash_attention_bwd_ref(*plain, None, None, g.float())
     got = (d_q.transpose(1, 2), d_kv[:, :, 0].transpose(1, 2),
            d_kv[:, :, 1].transpose(1, 2))
-    for x, y in zip(got, want):
+    for x, y in zip(got, A.flash_attention_bwd_ref(*plain, None, None,
+                                                   g.float())):
+        _close_to_plain(x, y, dtype)
+    out, lse = A._launch_flash(q.detach(), k.detach(), v.detach(), None,
+                               d ** -0.5, with_lse=True)
+    want_out, want_lse = A.flash_attention_lse_ref(*plain)
+    _close_to_plain(out, want_out, dtype)
+    _close_to_plain(lse, want_lse, torch.float32)
+    for x, y in zip(got, A.flash_attention_bwd_lse_ref(
+            *plain, None, None, out.float(), lse, g.float())):
         _close_to_plain(x, y, dtype)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,h,mask", [(6, 50, 3, None),
-                                        (4, 197, 2, "padding"),
-                                        (6, 50, 3, "fully"),
-                                        (4, 197, 2, "fully")])
-def test_packed_lse_kernels_match_plain_on_card(cuda, dtype, b, s, h, mask):
+@pytest.mark.parametrize("b,s,h,mask,d", [(6, 50, 3, None, 128),
+                                          (4, 197, 2, "padding", 128),
+                                          (6, 50, 3, "fully", 128),
+                                          (4, 197, 2, "fully", 128),
+                                          (4, 50, 2, "fully", 256),
+                                          (2, 197, 2, "padding", 256)])
+def test_packed_lse_kernels_match_plain_on_card(cuda, dtype, b, s, h, mask,
+                                                d):
     """Kernel #1 writing the log-sum-exp == the plain (out, lse) forward,
     and kernel #3 from that out and lse == the plain backward that takes
     them, at S <= 64 (one backward kernel) and above (two), a row whose keys
-    are all masked included; each call adds exactly one to its launch
-    count."""
-    _check_packed_lse_kernels(cuda, dtype, b, s, h, mask, 128)
+    are all masked included, and at Dh 256 (the scalar bodies); each call
+    adds exactly one to its launch count."""
+    _check_packed_lse_kernels(cuda, dtype, b, s, h, mask, d)
 
 
 @pytest.mark.cuda

@@ -29,7 +29,10 @@ SMALL = [(2, 9, 5, 128, 1, 256, 2, True), (2, 9, 9, 128, 1, 256, 2, False)]
 # S=197 (serving), the CrossMAE decoder (147 queries on 50 tokens).
 CARD = SMALL + [(8, 50, 50, 384, 3, 1536, 2, False),
                 (4, 197, 197, 384, 3, 1536, 1, False),
-                (8, 147, 50, 256, 2, 1024, 2, True)]
+                (8, 147, 50, 256, 2, 1024, 2, True),
+                # Heads of 256 (the attention bodies' scalar instances).
+                (2, 37, 37, 512, 2, 1024, 2, False),
+                (2, 70, 13, 512, 2, 1024, 2, True)]
 
 
 @pytest.fixture
@@ -203,7 +206,8 @@ CARD_CASES = ([(s, "tanh", dt) for s in CARD for dt in (FP32, BF16)]
               + [(s, "erf", BF16) for s in CARD[2:]])
 CARD_IDS = [f"{name}-{gelu}-{str(dt)[6:]}" for (s, gelu, dt) in CARD_CASES
             for name in [("odd-cross", "odd-self", "encoder", "serving",
-                          "decoder")[CARD.index(s)]]]
+                          "decoder", "wide-self", "wide-cross")[
+                              CARD.index(s)]]]
 
 
 @pytest.mark.cuda
@@ -260,9 +264,9 @@ def test_autograd_and_launch_counters_on_card(cuda):
 
 @pytest.mark.cuda
 def test_wide_heads_raise_on_card(cuda):
-    """Heads wider than the attention bodies take raise on the card rather
-    than run another program."""
-    shape = (2, 9, 5, 256, 1, 256, 1, True)
+    """Heads wider than the attention bodies take (256) raise on the card
+    rather than run another program."""
+    shape = (2, 9, 5, 512, 1, 256, 1, True)
     q0, kv, w, _ = _inputs(shape, 4, cuda, torch.bfloat16)
-    with pytest.raises(ValueError, match="Dh <= 128"):
+    with pytest.raises(ValueError, match="Dh <= 256"):
         BK.fused_block_stack(q0, kv, w, 1, "tanh", cross=True)

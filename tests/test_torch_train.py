@@ -468,9 +468,10 @@ def test_unported_options_raise(setup):
             make_train_step(tmodel, opt, tcfg.replace(**kw))
     with pytest.raises(NotImplementedError):
         make_train_step(tmodel, opt, tcfg, accum_steps=2)
-    tmodel.cfg = tcfg.replace(ema_decay=0.99)
-    with pytest.raises(NotImplementedError):
-        TrainState.create(tmodel, opt)
+    for kw in (dict(ema_decay=0.99), dict(remat=True)):
+        tmodel.cfg = tcfg.replace(**kw)
+        with pytest.raises(NotImplementedError):
+            TrainState.create(tmodel, opt)
     tmodel.cfg = tcfg
     state = TrainState.create(tmodel, opt)
     # uint8 sources at another size than cfg.size are now cropped in the
