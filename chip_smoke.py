@@ -27,10 +27,12 @@ just after:
   weights, evals that agree at one state, and against one step on the CPU;
 * the fused block stacks (slice 4): the training step of slice 2 with
   ``fused_blocks='on'`` (the encoder and the CrossMAE decoder each one
-  stack: kernels #6 and #7) and ``'fwd'`` (#6 with a per-block plain
-  backward), checked for exact launches per step, a falling loss and moving
-  weights, against one step on the CPU, and the serving tower
-  (``encode_full``) fused against per block on the card.
+  stack: kernel #6, which keeps each block's state, and #7, which reads it
+  and recomputes nothing) and ``'fwd'`` (#6 with a per-block plain
+  backward, no state), checked for exact launches and state buffers per
+  step, a falling loss and moving weights, against one step on the CPU,
+  and the serving tower (``encode_full``, no state) fused against per block
+  on the card.
 
 Last, it times each kernel at the training and pretraining shapes beside
 its bound, its plain version and the PyTorch call that computes the same
@@ -451,10 +453,13 @@ def check_patch_embed_kernel(worst: dict) -> None:
 # decoder, and the fused serving tower over 64 images at S=197), then cut
 # shapes for the fp32 bodies at serving's length and the decoder's, and odd
 # lengths at the smallest legal width. Tolerances, for the output, qstack,
-# dq0, dkv and all 16 weight gradients: fp32 max abs error
+# #6's state, dq0, dkv and all 16 weight gradients: fp32 max abs error
 # <= 1e-4 * max(1, max |plain|), bf16 <= 2e-2 * max(1, max |plain|).
 # Every block of the kernel's run is held to them on its own input (the
-# plain block on the kernel's input to that block). The whole bf16 stack is
+# plain block on the kernel's input to that block: its output and its
+# state), and #6 must give the same bits with a state buffer as without.
+# #7 is held against the plain backward from the same qstack and state
+# (#6's, viewed by state_views), over the whole stack. The whole bf16 stack is
 # held to them end to end where the plain version run on the CPU (other
 # fp32 sum orders, the same roundings) meets them against the plain version
 # on the card; over 12 bf16 blocks it need not, since rounding flips
@@ -494,7 +499,8 @@ def _stack_inputs(gen, shape, dtype):
 
 def check_block_stack_kernels(worst: dict) -> None:
     """Kernels #6 and #7 against fused_block_stack_ref / _bwd_ref on the
-    card, fp32 and bf16, TF32 off; then one bf16 pass through autograd."""
+    card, fp32 and bf16, TF32 off, #7 and the plain backward both from #6's
+    state; then one bf16 pass through autograd."""
     from mae_clip_torch.ops import block_kernel as BK
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -512,20 +518,33 @@ def check_block_stack_kernels(worst: dict) -> None:
             q0, kv, w, dout = _stack_inputs(gen, shape, dt)
             want_out, want_qstack = BK.fused_block_stack_ref(
                 q0, kv, w, h, "tanh", cross)
-            out, qstack = BK._launch_fwd(q0, kv, w, h, "tanh", cross)
-            # #7 and its plain version from the same saved block inputs.
-            got = BK._launch_bwd(want_qstack, kv, w, dout, h, "tanh", cross)
+            out, qstack, state = BK._launch_fwd(q0, kv, w, h, "tanh", cross,
+                                                keep_state=True)
+            bare = BK._launch_fwd(q0, kv, w, h, "tanh", cross)
             torch.cuda.synchronize()
-            want = BK.fused_block_stack_bwd_ref(want_qstack, kv, w, dout, h,
-                                                "tanh", cross)
-            errs = []
+            if not (torch.equal(out, bare[0])
+                    and torch.equal(qstack, bare[1])):
+                raise AssertionError(f"fused_block_stack {label}: other "
+                                     "bits with a state buffer than without")
+            del bare
+            views = BK.state_views(state, qstack, kv, w, h, cross)
+            # #7 and its plain version from the same qstack and state.
+            got = BK._launch_bwd(qstack, kv, w, dout, state, h, "tanh", cross)
+            torch.cuda.synchronize()
+            want = BK.fused_block_stack_bwd_ref(qstack, kv, w, dout, h,
+                                                "tanh", cross, state=views)
+            errs, serrs = [], []
             for l in range(n):
                 x, wl = qstack[l], {k: v[l:l + 1] for k, v in w.items()}
-                want_l = BK.fused_block_stack_ref(x, kv if cross else x, wl,
-                                                  h, "tanh", cross)[0]
+                want_l, _, want_st = BK.fused_block_stack_ref(
+                    x, kv if cross else x, wl, h, "tanh", cross,
+                    keep_state=True)
                 errs.append(_close(f"fused_block_stack {label} block {l}",
                                    qstack[l + 1] if l + 1 < n else out,
                                    want_l, tol(want_l, dt)))
+                serrs += [_close(f"fused_block_stack {label} block {l} "
+                                 f"state {k}", views[l][k], y, tol(y, dt))
+                          for k, y in want_st[0].items() if y is not None]
             whole = (("out", out, want_out), ("qstack", qstack, want_qstack))
             held, drift = True, ""
             if dt == torch.bfloat16 and n > 2:
@@ -542,7 +561,7 @@ def check_block_stack_kernels(worst: dict) -> None:
                                  tol(y, dt) if held else math.inf)
                           for what, x, y in whole]
             worst["fused_block_stack"] = max(worst["fused_block_stack"],
-                                             *errs, *whole_errs)
+                                             *errs, *serrs, *whole_errs)
             pairs = [("dq0", got[0], want[0])]
             if cross:
                 pairs.append(("dkv", got[1], want[1]))
@@ -558,8 +577,8 @@ def check_block_stack_kernels(worst: dict) -> None:
                 # ctx, not from P * dP: held also against a plain version
                 # that does the same, to show what that choice moves.
                 want_c = BK.fused_block_stack_bwd_ref(
-                    want_qstack, kv, w, dout, h, "tanh", cross,
-                    delta_from_ctx=True)
+                    qstack, kv, w, dout, h, "tanh", cross,
+                    delta_from_ctx=True, state=views)
                 pairs_c = [("dq0", want_c[0]), ("dkv", want_c[1])][
                     :1 + cross] + [(k, want_c[2][k]) for k in BK.W_KEYS]
                 cerrs = [_close(f"fused_block_stack_bwd {label} {k} vs the "
@@ -569,8 +588,10 @@ def check_block_stack_kernels(worst: dict) -> None:
                              f"sum from ctx {max(cerrs):.3e} "
                              f"({pairs[int(np.argmax(cerrs))][0]})")
             log(f"  fused_block_stack {label}: max abs err forward per block "
-                f"{max(errs):.3e}, end to end {max(whole_errs):.3e}{drift}; "
-                f"backward {max(berrs):.3e} (dq0, "
+                f"{max(errs):.3e}, its state {max(serrs):.3e}, end to end "
+                f"{max(whole_errs):.3e}{drift}; the same bits with and "
+                f"without the state ({state.numel() / 1e9:.3f} GB); "
+                f"backward from it {max(berrs):.3e} (dq0, "
                 f"{'dkv, ' if cross else ''}16 dw; the largest in "
                 f"{pairs[i][0]}, at a limit of {tol(pairs[i][2], dt):.3e})"
                 f"{ctx_delta}")
@@ -1002,12 +1023,14 @@ STACK_SHAPES = {"encoder": (256, 50, 50, 384, 3, 1536, 12, False),
 
 
 def _stack_work(shape, elt: int) -> tuple:
-    """(bytes, FLOPs) the forward stack must move and do, and the same for
-    the backward: each input read once and each output written once; the
-    products over the real rows (no padding). The backward recomputes the
-    forward and does twice its products again (input and weight
-    gradients)."""
-    b, sq, sk, d, _, f, n, cross = shape
+    """(bytes, FLOPs) the forward stack must move and do, the same for the
+    backward, and the bytes of the state #6 keeps for #7: each input read
+    once and each output written once; the products over the real rows (no
+    padding). The backward does twice the forward's products (input and
+    weight gradients); it reads the forward's state and recomputes nothing.
+    The state (activations in the compute type, row statistics in fp32) is
+    the design's, not the function's: it goes into ``design_bound_ms``."""
+    b, sq, sk, d, h, f, n, cross = shape
     m, mk = b * sq, b * (sk if cross else sq)
     gemm = 2 * m * d * d * 2 + 2 * mk * 2 * d * d + 4 * m * d * f
     attn = 4 * m * mk // b * d     # q k^T and P v over all heads
@@ -1017,7 +1040,69 @@ def _stack_work(shape, elt: int) -> tuple:
     fwd_bytes = acts + kv_bytes + weights + acts + n * acts
     bwd_bytes = n * acts + kv_bytes + weights + acts + acts + kv_bytes \
         + weights
-    return fwd_bytes, n * (gemm + attn), bwd_bytes, 3 * n * (gemm + attn)
+    state_bytes = n * ((5 * m * d + (mk * d if cross else 0) + 2 * mk * d
+                        + 2 * m * f) * elt
+                       + (b * h * sq + 4 * m + (2 * mk if cross else 0)) * 4)
+    return (fwd_bytes, n * (gemm + attn), bwd_bytes, 2 * n * (gemm + attn),
+            state_bytes)
+
+
+# block_common.cuh's EpiMode, in order: the GEMM bodies' epilogues.
+EPILOGUES = ("bias", "bias+residual", "bias+gelu", "gelu grad", "fp32",
+             "fp32 add", "round", "split partials")
+
+
+def _kernel_group(name: str) -> str:
+    """The group of a block stack's kernel in a launch breakdown: the GEMM
+    bodies by template (operand layouts, epilogue), the weight-gradient
+    reduce, the column sums, LayerNorm forward and backward, attention
+    forward and backward."""
+    m = re.search(r"gemm_mma_kernel<(\w+), (\w+), (\d+)>", name)
+    if m:
+        return (f"GEMM mma<{'km' if m[1] == 'true' else 'mk'},"
+                f"{'kn' if m[2] == 'true' else 'nk'},{EPILOGUES[int(m[3])]}>")
+    m = re.search(r"reduce_rows_kernel<[^<>]*?(\d+)>", name)
+    if m:
+        return "weight-gradient reduce" if m[1] == "0" else "column sums"
+    for key, group in (("gemm_scalar_kernel", "GEMM scalar"),
+                       ("colsum_kernel", "column sums"),
+                       ("ln_bwd_kernel", "LayerNorm backward"),
+                       ("ln_fwd_kernel", "LayerNorm forward"),
+                       ("attn_bwd", "attention backward"),
+                       ("attn_fwd", "attention forward"),
+                       ("Memcpy", "copy"), ("Memset", "memset"),
+                       ("at::native", "PyTorch (the wrapper's own)")):
+        if key in name:
+            return group
+    return name[:60]
+
+
+# Groups that are forward work: none may appear in #7's breakdown.
+FORWARD_GROUPS = ("LayerNorm forward", "attention forward", "GEMM mma<mk,nk")
+
+
+def _launch_breakdown(fn, traces: int = 3) -> dict:
+    """Device ms and launches of one call of a block stack, by kernel group
+    (``_kernel_group``), largest first, from a torch.profiler trace: of
+    ``traces`` traces of one call each, the one with the most launches.
+    Kernels launched in the first milliseconds of a trace have gone
+    unrecorded (the first block's, or more), so each trace waits 0.2 s
+    before the call; the launches of each trace are logged."""
+    def traced():
+        time.sleep(0.2)
+        fn()
+
+    windows = [profile_window(traced, top=0, names=True)
+               for _ in range(traces)]
+    log(f"  launches in {traces} traces of one call: "
+        f"{[w['kernel_launches'] for w in windows]}")
+    window = max(windows, key=lambda w: w["kernel_launches"])
+    groups = {}
+    for name, (ms, n) in window["kernels_by_name"].items():
+        ms0, n0 = groups.get(_kernel_group(name), (0.0, 0))
+        groups[_kernel_group(name)] = (ms0 + ms, n0 + n)
+    return {g: dict(ms=round(ms, 4), launches=n) for g, (ms, n) in
+            sorted(groups.items(), key=lambda kv: -kv[1][0])}
 
 
 def _busy_ms(fn, calls: int = 3) -> float:
@@ -1032,10 +1117,14 @@ def time_block_stacks() -> dict:
     each (median and spread), beside their bound, their plain versions and
     the port's own ``fused_blocks='off'`` per-block path on the same weights
     (no single PyTorch call computes a block stack): its forward, and its
-    forward + backward less its forward. The 'off' path's time is its
-    device time from a trace (3 timings, median): back to back, its wall
-    time is the host's queueing of ~30 launches per block
-    (``library_wall_ms``, kept beside it)."""
+    forward + backward less its forward. #6 is timed without a state (its
+    ``ms``, as serving runs it) and with one (``with_state``, as training
+    does); #7 from that state. The 'off' path's time is its device time
+    from a trace (3 timings, median): back to back, its wall time is the
+    host's queueing of ~30 launches per block (``library_wall_ms``, kept
+    beside it). Then one call of #6 (with a state) and one of #7, each
+    broken down by kernel group from a trace; #7's must hold no forward
+    work."""
     from mae_clip_torch.models.mae import (CrossAttnBlock,
                                            collect_cross_block_weights)
     from mae_clip_torch.models.vit import (ViTBlock, ViTConfig,
@@ -1061,7 +1150,9 @@ def time_block_stacks() -> dict:
         kv = torch.randn(b, sk, d, generator=gen).to(DEVICE, dt) \
             if cross else q0
         dout = torch.randn(b, sq, d, generator=gen).to(DEVICE, dt)
-        _, qstack = BK._launch_fwd(q0, kv, w, h, "tanh", cross)
+        _, qstack, state = BK._launch_fwd(q0, kv, w, h, "tanh", cross,
+                                          keep_state=True)
+        views = BK.state_views(state, qstack, kv, w, h, cross)
         params = list(blocks.parameters())
         x_leaf = q0.clone().requires_grad_()
         kv_leaf = kv.clone().requires_grad_() if cross else None
@@ -1082,7 +1173,7 @@ def time_block_stacks() -> dict:
             leaves = [x_leaf] + ([kv_leaf] if cross else []) + params
             return torch.autograd.grad(off_fwd_graph(), leaves, dout)
 
-        fb, ff, bb, bf = _stack_work(shape, 2)
+        fb, ff, bb, bf, sb = _stack_work(shape, 2)
         off_runs = {"fwd": [], "bwd": []}
         for _ in range(3):
             off_runs["fwd"].append(_busy_ms(off_fwd))
@@ -1094,6 +1185,14 @@ def time_block_stacks() -> dict:
         label = (f"{which}: q ({b},{sq},{d})" + (f" kv ({b},{sk},{d})"
                                                   if cross else "")
                  + f", {n} blocks, {h} heads of {d // h}, F={f}, bf16")
+        def fwd_state():
+            return BK._launch_fwd(q0, kv, w, h, "tanh", cross,
+                                  keep_state=True)
+
+        def bwd():
+            return BK._launch_bwd(qstack, kv, w, dout, state, h, "tanh",
+                                  cross)
+
         cases = {
             "fused_block_stack": (
                 lambda: BK._launch_fwd(q0, kv, w, h, "tanh", cross),
@@ -1101,11 +1200,13 @@ def time_block_stacks() -> dict:
                                                  cross),
                 "fwd", _bound_ms(fb, ff, dt)),
             "fused_block_stack_bwd": (
-                lambda: BK._launch_bwd(qstack, kv, w, dout, h, "tanh",
-                                       cross),
+                bwd,
                 lambda: BK.fused_block_stack_bwd_ref(qstack, kv, w, dout, h,
-                                                     "tanh", cross),
+                                                     "tanh", cross,
+                                                     state=views),
                 "bwd", _bound_ms(bb, bf, dt))}
+        design = {"fused_block_stack": _bound_ms(fb + sb, ff, dt)[0],
+                  "fused_block_stack_bwd": _bound_ms(bb + sb, bf, dt)[0]}
         for name, (kernel, plain, part, (bound, by)) in cases.items():
             runs, host = [], []
             for _ in range(7):
@@ -1119,7 +1220,8 @@ def time_block_stacks() -> dict:
                      library_ms=float(np.median(lib_runs)),
                      library_ms_runs=lib_runs,
                      library_wall_ms=off_wall[part], bound_ms=bound,
-                     bound_by=by,
+                     bound_by=by, design_bound_ms=design[name],
+                     state_gb=sb / 1e9,
                      library="device time of the port's fused_blocks='off' "
                              "per-block path on the same weights" + (
                                  " (forward + backward less forward)"
@@ -1131,7 +1233,28 @@ def time_block_stacks() -> dict:
                 f"{bound:.4f} ({by}), plain {r['plain_ms']:.4f}, "
                 f"'off' path device {r['library_ms']:.4f} "
                 f"{[round(x, 4) for x in lib_runs]}, wall back to back "
-                f"{r['library_wall_ms']:.4f}")
+                f"{r['library_wall_ms']:.4f}; design bound with the state "
+                f"({sb / 1e9:.3f} GB {'read' if part == 'bwd' else 'written'}"
+                f") {design[name]:.4f}")
+        runs = [_queued_ms(fwd_state)[0] for _ in range(7)]
+        r = out["fused_block_stack"][which]
+        r["with_state"] = dict(ms=float(np.median(runs)), ms_runs=runs,
+                               design_bound_ms=design["fused_block_stack"])
+        log(f"  fused_block_stack with its state [{label}]: device ms per "
+            f"call {r['with_state']['ms']:.4f} (7 timings "
+            f"{[round(x, 4) for x in runs]}; without {r['ms']:.4f})")
+        for name, fn in (("fused_block_stack", fwd_state),
+                         ("fused_block_stack_bwd", bwd)):
+            parts = _launch_breakdown(fn)
+            out[name][which]["launch_breakdown"] = parts
+            log(f"  {name} [{which}] one call by kernel group (device ms, "
+                f"launches): {json.dumps(parts)}; sum "
+                f"{sum(v['ms'] for v in parts.values()):.4f} ms")
+        fwd_work = [g for g in out["fused_block_stack_bwd"][which][
+            "launch_breakdown"] if g.startswith(FORWARD_GROUPS)]
+        if fwd_work:
+            raise AssertionError(f"#7 launched forward work: {fwd_work}")
+        del state, views
     log(f"  SM clock, max SM clock after: {clock_line()}")
     return out
 
@@ -1236,19 +1359,21 @@ def stage_breakdown(service, queries) -> dict:
 
 
 def profile_window(fn, top: int = 6, spans=(), check=None,
-                   tries: int = 3) -> dict:
+                   tries: int = 3, names: bool = False) -> dict:
     """Device busy time over one call of ``fn``, from a torch.profiler
     trace: the sum of CUDA kernel times over the call's host wall time, and
     the ``top`` kernels that take most of it. For each record_function span
     named in ``spans``: its host ms (summed over its occurrences) and the
     device ms of the kernels launched under it from the calling thread.
+    With ``names``, also every kernel's full name with its device ms and
+    launches (``kernels_by_name``).
 
     The profiler now and then hands back a trace without the card's events,
     so a trace with no kernel, or one that ``check`` (which raises
     AssertionError) refuses, is taken again, up to ``tries`` calls of
     ``fn`` in all; the last refusal is raised."""
     for attempt in range(1, tries + 1):
-        window = _profile_once(fn, top, spans)
+        window = _profile_once(fn, top, spans, names)
         try:
             if not window["kernel_launches"]:
                 raise AssertionError("the profiler recorded no device time")
@@ -1262,7 +1387,7 @@ def profile_window(fn, top: int = 6, spans=(), check=None,
                 "tracing again")
 
 
-def _profile_once(fn, top: int, spans) -> dict:
+def _profile_once(fn, top: int, spans, names: bool = False) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1280,9 +1405,10 @@ def _profile_once(fn, top: int, spans) -> dict:
                and not getattr(e, "is_user_annotation", False)
                and not e.name.startswith(("Optimizer.", "train_step."))]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-    by_name = {}
+    by_name, launches = {}, {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+        launches[e.name] = launches.get(e.name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     span_ms = {}
     for name in spans:
@@ -1299,11 +1425,15 @@ def _profile_once(fn, top: int, spans) -> dict:
             device_ms=sum(k.device_time_total for k in kernels
                           if any(a <= k.time_range.start < b
                                  for a, b in extents)) / 1e3)
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                busy_share=busy_ms / wall_ms if busy_ms else None,
-                kernel_launches=len(kernels),
-                top_kernels_ms={k[:60]: round(v, 4) for k, v in top},
-                spans=span_ms)
+    window = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                  busy_share=busy_ms / wall_ms if busy_ms else None,
+                  kernel_launches=len(kernels),
+                  top_kernels_ms={k[:60]: round(v, 4) for k, v in top},
+                  spans=span_ms)
+    if names:
+        window["kernels_by_name"] = {k: (v, launches[k])
+                                     for k, v in by_name.items()}
+    return window
 
 
 def serve_flagship(model, rng: np.random.Generator) -> dict:
@@ -1459,19 +1589,20 @@ LAUNCHES_PER_STEP = {"qkv_packed_attention": 12,
                      "qkv_packed_attention_bwd": 12,
                      "flash_attention": 4, "flash_attention_bwd": 4,
                      "masked_patch_embed": 0, "fused_block_stack": 0,
-                     "fused_block_stack_bwd": 0}
+                     "fused_block_stack_bwd": 0, "fused_block_stack_state": 0}
 # With fused_blocks='on' the encoder and the CrossMAE decoder are one stack
-# each (#6 forward, #7 backward) and no attention kernel runs on its own;
-# with 'fwd' the backward is the per-block plain recompute (no #7).
+# each (#6 forward, keeping its state, and #7 backward) and no attention
+# kernel runs on its own; with 'fwd' the backward is the per-block plain
+# recompute (no #7, and no state kept).
 FUSED_LAUNCHES_PER_STEP = {
     "on": dict(LAUNCHES_PER_STEP, qkv_packed_attention=0,
                qkv_packed_attention_bwd=0, flash_attention=0,
                flash_attention_bwd=0, fused_block_stack=2,
-               fused_block_stack_bwd=2),
+               fused_block_stack_bwd=2, fused_block_stack_state=2),
     "fwd": dict(LAUNCHES_PER_STEP, qkv_packed_attention=0,
                 qkv_packed_attention_bwd=0, flash_attention=0,
                 flash_attention_bwd=0, fused_block_stack=2,
-                fused_block_stack_bwd=0)}
+                fused_block_stack_bwd=0, fused_block_stack_state=0)}
 TRAIN_DATA_SEED = 10  # one batch set for every training path
 
 
@@ -1713,7 +1844,8 @@ def check_fused_serving_tower(rng: np.random.Generator) -> float:
     images = rng.integers(0, 256, (64, size, size, 3), np.uint8)
     counts = _reset_counts()
     got = _image_embed_fn(fused)(images)
-    launched = _read_counts(counts)["fused_block_stack"]
+    launched, states = (_read_counts(counts)[k] for k in (
+        "fused_block_stack", "fused_block_stack_state"))
     want = _image_embed_fn(plain)(images)
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
     log(f"  encode_full of 64 images, fused vs per block on the card: "
@@ -1721,6 +1853,8 @@ def check_fused_serving_tower(rng: np.random.Generator) -> float:
         "time(s)")
     if launched != 1:
         raise AssertionError(f"encode_full launched #6 {launched} times")
+    if states:
+        raise AssertionError(f"encode_full kept {states} training states")
     if float(cos.min()) < 0.99:
         raise AssertionError(f"fused encode_full cosine {float(cos.min())}"
                              " < 0.99")
@@ -1739,7 +1873,8 @@ PRETRAIN_LAUNCHES_PER_STEP = {"qkv_packed_attention": 16,
                               "masked_patch_embed": 1,
                               "flash_attention": 0, "flash_attention_bwd": 0,
                               "fused_block_stack": 0,
-                              "fused_block_stack_bwd": 0}
+                              "fused_block_stack_bwd": 0,
+                              "fused_block_stack_state": 0}
 
 
 def build_pretrain_model(batch: int, compute_dtype: str, device: str,
@@ -1919,6 +2054,9 @@ def _counters():
 
     return {"fused_block_stack": (BK.fused_block_stack, "launches"),
             "fused_block_stack_bwd": (BK.fused_block_stack, "bwd_launches"),
+            # Not a launch: the state buffers #6's wrapper allocates.
+            "fused_block_stack_state": (BK.fused_block_stack,
+                                        "state_allocs"),
             "qkv_packed_attention": (A.qkv_packed_attention, "launches"),
             "flash_attention": (A.flash_attention, "launches"),
             "qkv_packed_attention_bwd": (A.qkv_packed_attention,
@@ -1989,6 +2127,12 @@ def main() -> int:
         "the fused serving tower against per block")
     fused["against_cpu"] = check_train_step_against_cpu(rng, "on")
     fused["encode_full_min_cosine"] = check_fused_serving_tower(rng)
+    state_gb = sum(_stack_work(s, 2)[4] for s in STACK_SHAPES.values()) / 1e9
+    log(f"  fused_blocks='on' step: peak memory {fused['peak_memory_gb']:.3f} "
+        f"GB, of which the two stacks' state ~{state_gb:.3f} GB ('fwd' "
+        f"{fused_fwd['peak_memory_gb']:.3f}, per block "
+        f"{train['peak_memory_gb']:.3f}); lowest gradient cosine card vs CPU "
+        f"{fused['against_cpu']['min_grad_cosine']:.5f} (limit 0.99)")
 
     log("phase 5: kernel times (serving, training, pretraining shapes, then "
         "the block stacks)")
@@ -2015,8 +2159,13 @@ def main() -> int:
             extra["decoder_shape"] = {
                 k: stack_times[name]["decoder"][k]
                 for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                          "library_ms")}
+                          "design_bound_ms", "library_ms", "with_state",
+                          "launch_breakdown")
+                if k in stack_times[name]["decoder"]}
             extra["library"] = t["library"]
+            extra["launch_breakdown"] = t["launch_breakdown"]
+            if "with_state" in t:
+                extra["with_state"] = t["with_state"]
         else:
             t = times[name] if name in times else pre_times[name]
         if name in times and name in pre_times:

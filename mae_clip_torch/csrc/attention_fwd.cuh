@@ -17,8 +17,8 @@
 //     l; the second forms P = exp(s - m) / max(l, 1e-30) in fp32, rounds it
 //     to the input type, and out = P . v. With one key tile (Sk <= 64) the
 //     second pass reuses the first pass's scores. Given p.lse (the stack's
-//     backward, which re-runs the forward), lse = m + log(max(l, 1e-30))
-//     is written as for #1.
+//     forward when it keeps its state for the backward), lse = m +
+//     log(max(l, 1e-30)) is written as for #1.
 //
 // Bodies for bf16 with Dh = 64 or 128 and 16-byte aligned rows, one block of
 // 4 warps per (batch*head, 64-query tile), each warp owning 16 query rows as

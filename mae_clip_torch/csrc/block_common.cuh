@@ -2,8 +2,10 @@
 // block_stack_bwd.cu): LayerNorm, GELU, the GEMM bodies with their fused
 // epilogues, and the block's attention, which runs the attention kernels'
 // own bodies (attention_fwd.cuh, attention_bwd.cuh) on the stack's packed
-// q and kv rows. Included inside each source's unnamed namespace (through
-// attention_common.cuh's), so each library keeps its own copy.
+// q and kv rows, and the layout of the training state that the forward
+// keeps for the backward (State, at the end). Included inside each source's
+// unnamed namespace (through attention_common.cuh's), so each library keeps
+// its own copy.
 // ops/_build.py hashes this file with every source that includes it.
 //
 // Layouts. Activations are dense (rows, width) row-major in the compute
@@ -69,12 +71,14 @@ inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 // ---------------------------------------------------------------------------
 // LayerNorm forward: one warp per row, fp32 statistics,
-// y = ((x - mean) * rstd) * g + b rounded to T.
+// y = ((x - mean) * rstd) * g + b rounded to T. Where mean and rstd are
+// given (the training state), the row's statistics are kept there (M).
 // ---------------------------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(256)
-    ln_fwd_kernel(const T* x, const T* g, const T* b, T* y, int M, int D) {
+    ln_fwd_kernel(const T* x, const T* g, const T* b, T* y, float* mean,
+                  float* rstd_out, int M, int D) {
   const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= M) return;
   const T* xr = x + (long long)row * D;
@@ -88,15 +92,19 @@ __global__ void __launch_bounds__(256)
     v += d * d;
   }
   const float rstd = rsqrtf(warp_sum(v) / D + kLnEps);
+  if (mean != nullptr && lane == 0) {
+    mean[row] = mu;
+    rstd_out[row] = rstd;
+  }
   for (int c = lane; c < D; c += 32)
     store(&yr[c], (to_float(xr[c]) - mu) * rstd * to_float(g[c]) +
                       to_float(b[c]));
 }
 
 template <typename T>
-int ln_fwd(const T* x, const T* g, const T* b, T* y, int M, int D,
-           cudaStream_t st) {
-  ln_fwd_kernel<T><<<cdiv(M, 8), 256, 0, st>>>(x, g, b, y, M, D);
+int ln_fwd(const T* x, const T* g, const T* b, T* y, float* mean,
+           float* rstd, int M, int D, cudaStream_t st) {
+  ln_fwd_kernel<T><<<cdiv(M, 8), 256, 0, st>>>(x, g, b, y, mean, rstd, M, D);
   return (int)cudaGetLastError();
 }
 
@@ -591,5 +599,69 @@ struct Arena {
     return p;
   }
 };
+
+// ---------------------------------------------------------------------------
+// The training state: what block_stack_fwd keeps of every block, when a
+// gradient is wanted, for block_stack_bwd to read instead of recomputing
+// ---------------------------------------------------------------------------
+
+// One block's activations in T: h = LN1(x), kvh = LNkv(kv) (cross only),
+// qp (M, D), kvp (Mk, 2D), ctx, x1, h2 (M, D), a1 (before the GELU) and a2
+// (M, F); and its row statistics in fp32: the attention's log-sum-exp
+// (B*H, Sq), the mean and rstd of LN1's and LN2's rows (M) and of LNkv's
+// (Mk, cross only). Absent fields are null. The order is
+// ops/block_kernel.py's STATE_KEYS.
+template <typename T>
+struct State {
+  T *h, *kvh, *qp, *kvp, *ctx, *x1, *h2, *a1, *a2;
+  float *lse, *mean1, *rstd1, *mean2, *rstd2, *meankv, *rstdkv;
+};
+constexpr int kStateFields = 16;
+
+// The fields of one block in order. Without `full`, the activations the
+// forward passes from one launch to the next and nothing more (no a1, no
+// statistics): the forward's workspace when it keeps no state.
+template <typename T>
+State<T> take_state(Arena& ar, const Shape& s, bool full) {
+  const long long M = s.M(), Mk = s.Mk(), D = s.D, F = s.F;
+  State<T> b = {};
+  b.h = ar.take<T>(M * D);
+  b.kvh = s.cross ? ar.take<T>(Mk * D) : nullptr;
+  b.qp = ar.take<T>(M * D);
+  b.kvp = ar.take<T>(Mk * 2 * D);
+  b.ctx = ar.take<T>(M * D);
+  b.x1 = ar.take<T>(M * D);
+  b.h2 = ar.take<T>(M * D);
+  if (full) b.a1 = ar.take<T>(M * F);
+  b.a2 = ar.take<T>(M * F);
+  if (!full) return b;
+  b.lse = ar.take<float>((long long)s.B * s.H * s.Sq);
+  b.mean1 = ar.take<float>(M);
+  b.rstd1 = ar.take<float>(M);
+  b.mean2 = ar.take<float>(M);
+  b.rstd2 = ar.take<float>(M);
+  if (s.cross) {
+    b.meankv = ar.take<float>(Mk);
+    b.rstdkv = ar.take<float>(Mk);
+  }
+  return b;
+}
+
+// Bytes of one block's state; the buffer holds L of them, block after block.
+template <typename T>
+long long state_block_bytes(const Shape& s) {
+  Arena ar = {nullptr, 0};
+  take_state<T>(ar, s, true);
+  return (long long)ar.used;
+}
+
+// Block l's state in a buffer of s.L blocks.
+template <typename T>
+State<T> state_at(const void* base, const Shape& s, int l) {
+  Arena ar = {const_cast<char*>(static_cast<const char*>(base)) +
+                  (size_t)l * state_block_bytes<T>(s),
+              0};
+  return take_state<T>(ar, s, true);
+}
 
 }  // namespace

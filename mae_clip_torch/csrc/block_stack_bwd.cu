@@ -7,10 +7,11 @@
 //   * block_stack_bwd <- mae_clip_tpu/ops/block_kernel.py _stack_bwd_kernel
 //                        (pallas_call in _stack_backward).
 //
-// For the output gradient dout of a stack run by block_stack_fwd.cu, it
-// walks the blocks in reverse from their saved inputs (qstack): recompute
-// the block (LN1, q/kv projections, attention, proj + residual, LN2, fc1,
-// GELU), then backpropagate the MLP half and the attention half, with the
+// For the output gradient dout of a stack run by block_stack_fwd.cu with a
+// state buffer, it walks the blocks in reverse from their saved inputs
+// (qstack) and the forward's state (State in block_common.cuh: each block's
+// activations, the attention's row log-sum-exp, the LayerNorms' row mean and
+// rstd), and backpropagates the MLP half and the attention half, with the
 // math and roundings of the TPU kernel (and of the plain version,
 // fused_block_stack_bwd_ref in ops/block_kernel.py):
 //   da1 = (dq . Wfc2) * gelu'(a1);       dh2 = round(da1) . Wfc1
@@ -26,24 +27,31 @@
 // biases and LayerNorm parameters as column sums. In self mode the lnkv
 // gradients are zero and dkv is not written.
 //
-// Design. Per block, in reverse: the forward's launches again, then the
-// GEMMs of the input gradients (tensor-core bodies as in the forward, with
-// the weight read transposed by ldmatrix.trans), the attention backward of
-// kernel #3 (attention_bwd.cuh's LSE bodies, from the re-run forward's
-// row log-sum-exp and output: one kernel at Sq, Sk <= 64, else one block
-// per (sample*head, 64-query tile) for dq and one per (sample*head, 64-key
-// tile) for dk and dv; no atomics) on the stack's qp/kvp rows, which also
-// stores dqp and dkvp in fp32 for the bias gradients, a
-// LayerNorm backward that also writes per-64-row column partials of
-// dy*xhat and dy, and the weight-gradient GEMMs dY^T X split over the rows
-// into fixed chunks whose fp32 partials a second kernel sums in order: a
-// deterministic result with no atomics. dq is carried in two alternating
-// buffers; dkv accumulates in place.
+// Design. The TPU kernel re-runs each block's forward from its input, since
+// only qstack outlives the forward there (a block's activations live in
+// VMEM). This card's HBM holds them (1.77 GB for the flagship encoder's 12
+// blocks at B=256, 1.08 GB for the decoder's 4), so the forward keeps them
+// when a gradient is wanted and this kernel launches no forward work: per
+// block, in reverse, the GEMMs of the input gradients (tensor-core bodies
+// as in the forward, with the weight read transposed by ldmatrix.trans), the
+// attention backward of kernel #3 (attention_bwd.cuh's LSE bodies, from the
+// saved row log-sum-exp and ctx: one kernel at Sk <= 64, else one block per
+// (sample*head, 64-query tile) for dq and one per (sample*head, 64-key tile)
+// for dk and dv; no atomics) on the saved qp/kvp rows, which also stores
+// dqp and dkvp in fp32 for the bias gradients, a LayerNorm backward from
+// the saved row mean and rstd that also writes per-64-row column partials
+// of dy*xhat and dy, and the weight-gradient GEMMs dY^T X split over the
+// rows into fixed chunks whose fp32 partials a second kernel sums in order:
+// a deterministic result with no atomics. dq is carried in two alternating
+// buffers; dkv accumulates in place. The saved values are the bits the
+// recompute gave (the same kernels on the same inputs), so the gradients
+// are too.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16): the recompute plus twice the
-// forward's products, ~3x #6: ~1.7 ms for the flagship encoder stack and
-// ~0.66 ms for the decoder's, bound by operations (chip_smoke.py computes
-// it from its inputs).
+// Bound on an H100 SXM (989 TFLOP/s bf16): twice the forward's products
+// (input and weight gradients), 2x #6: ~1.1 ms for the flagship encoder
+// stack and ~0.44 ms for the decoder's, bound by operations; reading the
+// state adds ~0.53 / ~0.32 ms of bytes, under that (chip_smoke.py computes
+// both from its inputs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,8 +76,12 @@ constexpr int kRowsPer = 64;  // rows per column-partial chunk
 // Reductions
 // ---------------------------------------------------------------------------
 
+// What a reduce_rows_kernel instance sums; it only names the instance, so
+// that a profile tells the two apart.
+enum SumOf { kSumWeights, kSumColumns };
+
 // dst[i] = sum over r in order of part[r * stride + i], rounded to T.
-template <typename T>
+template <typename T, int WHAT>
 __global__ void __launch_bounds__(256)
     reduce_rows_kernel(const float* part, int R, long long N,
                        long long stride, T* dst) {
@@ -80,11 +92,11 @@ __global__ void __launch_bounds__(256)
   store(dst + i, s);
 }
 
-template <typename T>
+template <int WHAT, typename T>
 int reduce_rows(const float* part, int R, long long N, long long stride,
                 T* dst, cudaStream_t st) {
-  reduce_rows_kernel<T><<<cdiv(N, 256), 256, 0, st>>>(part, R, N, stride,
-                                                       dst);
+  reduce_rows_kernel<T, WHAT><<<cdiv(N, 256), 256, 0, st>>>(part, R, N,
+                                                             stride, dst);
   return (int)cudaGetLastError();
 }
 
@@ -107,7 +119,7 @@ int bias_grad(const Tin* x, int M, int N, float* part, T* dst,
   const int R = cdiv(M, kRowsPer);
   colsum_kernel<Tin><<<dim3(cdiv(N, 256), R), 256, 0, st>>>(x, M, N, part);
   CHECK((int)cudaGetLastError());
-  return reduce_rows(part, R, N, N, dst, st);
+  return reduce_rows<kSumColumns>(part, R, N, N, dst, st);
 }
 
 // Row splits of a weight-gradient GEMM: enough (out x in) tiles times
@@ -138,7 +150,7 @@ int weight_grad(const T* dy, const T* x, int out, int in, int rows,
   const int z = (int)dw_splits(out, in, rows);
   CHECK(gemm(p, z, st));
   const long long n = (long long)out * in;
-  return reduce_rows(part, z, n, n, dst, st);
+  return reduce_rows<kSumWeights>(part, z, n, n, dst, st);
 }
 
 // y (M, N) = epilogue(dy (M, K) . W), W (K, N): the input gradient through
@@ -164,7 +176,9 @@ Gemm<T> bwd_gemm(const T* dy, const T* w, int M, int N, int K, int mode) {
 
 template <typename T>
 struct LnBwd {
-  const T* x;         // the LN input (M, D); xhat and rstd are recomputed
+  const T* x;         // the LN input (M, D)
+  const float* mean;  // its row mean and rstd from the forward (M)
+  const float* rstd;
   const float* dy;    // (M, D)
   const T* g;         // (D)
   const float* res_f; // added to dx, or null
@@ -190,15 +204,7 @@ __global__ void __launch_bounds__(256) ln_bwd_kernel(LnBwd<T> p) {
     const long long o = (long long)row * D;
     const T* xr = p.x + o;
     const float* dyr = p.dy + o;
-    float s = 0.f;
-    for (int c = lane; c < D; c += 32) s += to_float(xr[c]);
-    const float mu = warp_sum(s) / D;
-    float v = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float d = to_float(xr[c]) - mu;
-      v += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(v) / D + kLnEps);
+    const float mu = p.mean[row], rstd = p.rstd[row];
     float s1 = 0.f, s2 = 0.f;
     for (int c = lane; c < D; c += 32) {
       const float dyg = dyr[c] * to_float(p.g[c]);
@@ -237,8 +243,8 @@ int ln_bwd(LnBwd<T> p, float* part, T* dg, T* db, cudaStream_t st) {
   CHECK(set_smem(ln_bwd_kernel<T>, smem));
   ln_bwd_kernel<T><<<R, 256, smem, st>>>(p);
   CHECK((int)cudaGetLastError());
-  CHECK(reduce_rows(part, R, p.D, 2LL * p.D, dg, st));
-  return reduce_rows(part + p.D, R, p.D, 2LL * p.D, db, st);
+  CHECK(reduce_rows<kSumColumns>(part, R, p.D, 2LL * p.D, dg, st));
+  return reduce_rows<kSumColumns>(part + p.D, R, p.D, 2LL * p.D, db, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -247,12 +253,11 @@ int ln_bwd(LnBwd<T> p, float* part, T* dg, T* db, cudaStream_t st) {
 
 template <typename T>
 struct BwdBuffers {
-  T *h, *kvh, *qp, *kvp, *ctx, *x1, *h2, *a1, *a2;  // the recompute
   float* da1_f;
   T* da1_t;
   float *dh2_f, *dx1_f;
   T *dx1_t, *dctx_t;
-  float* stats;  // (3, B*H*Sq)
+  float* stats;  // (3, B*H*Sq): row max, row sum, delta
   float* dqp_f;
   T* dqp_t;
   float* dkvp_f;
@@ -276,15 +281,6 @@ template <typename T>
 BwdBuffers<T> bwd_buffers(Arena& ar, const Shape& s) {
   const long long M = s.M(), Mk = s.Mk(), D = s.D, F = s.F;
   BwdBuffers<T> b;
-  b.h = ar.take<T>(M * D);
-  b.kvh = s.cross ? ar.take<T>(Mk * D) : nullptr;
-  b.qp = ar.take<T>(M * D);
-  b.kvp = ar.take<T>(Mk * 2 * D);
-  b.ctx = ar.take<T>(M * D);
-  b.x1 = ar.take<T>(M * D);
-  b.h2 = ar.take<T>(M * D);
-  b.a1 = ar.take<T>(M * F);
-  b.a2 = ar.take<T>(M * F);
   b.da1_f = ar.take<float>(M * F);
   b.da1_t = ar.take<T>(M * F);
   b.dh2_f = ar.take<float>(M * D);
@@ -306,24 +302,15 @@ BwdBuffers<T> bwd_buffers(Arena& ar, const Shape& s) {
   return b;
 }
 
+// The attention backward of one block, from d ctx (buf.dctx_t) to dqp
+// (B*Sq, D) and dkvp (B*Sk', 2D) in the layouts of qp and kvp, rounded and
+// in fp32; it reads the block's saved qp, kvp, ctx and row log-sum-exp.
 template <typename T>
-int stack_bwd(const T* qstack, const T* kv, const void* const* w_,
-              const T* dout, T* dq0, T* dkv, void* const* dw_, void* work,
-              const Shape& s, int gelu, cudaStream_t st) {
-  const T* const* w = reinterpret_cast<const T* const*>(w_);
-  T* const* dw = reinterpret_cast<T* const*>(dw_);
-  Arena ar = {static_cast<char*>(work), 0};
-  const BwdBuffers<T> buf = bwd_buffers<T>(ar, s);
-  const int M = (int)s.M(), Mk = (int)s.Mk(), D = s.D, F = s.F;
-  const long long MD = (long long)M * D, BHS = (long long)s.B * s.H * s.Sq;
-
-  // The re-run forward writes the row log-sum-exp into stats[0 .. BHS) for
-  // the attention backward, which also reads its output ctx.
-  attn_fwd::Params<T> at =
-      block_attention(s, (const T*)buf.qp, (const T*)buf.kvp, buf.ctx);
-  at.lse = buf.stats;
-  // Its backward, from d ctx: dqp (B*Sq, D) and dkvp (B*Sk', 2D) in the
-  // layouts of qp and kvp, rounded and in fp32.
+attn_bwd::BwdParams<T> block_attention_bwd(const Shape& s, const State<T>& f,
+                                           const BwdBuffers<T>& buf) {
+  const attn_fwd::Params<T> at =
+      block_attention(s, (const T*)f.qp, (const T*)f.kvp, f.ctx);
+  const long long BHS = (long long)s.B * s.H * s.Sq;
   attn_bwd::BwdParams<T> ab = {};
   ab.q = at.q;
   ab.k = at.k;
@@ -331,16 +318,16 @@ int stack_bwd(const T* qstack, const T* kv, const void* const* w_,
   ab.dout = buf.dctx_t;
   ab.dq = buf.dqp_t;
   ab.dk = buf.dkvp_t;
-  ab.dv = buf.dkvp_t + D;
+  ab.dv = buf.dkvp_t + s.D;
   ab.dq_f = buf.dqp_f;
   ab.dk_f = buf.dkvp_f;
-  ab.dv_f = buf.dkvp_f + D;
+  ab.dv_f = buf.dkvp_f + s.D;
   ab.row_m = buf.stats;
   ab.row_l = buf.stats + BHS;
   ab.row_delta = buf.stats + 2 * BHS;
   ab.out = at.o;
   ab.so = at.so;
-  ab.lse = buf.stats;
+  ab.lse = f.lse;
   ab.sq = ab.sdo = ab.sdq = at.sq;
   ab.sk = ab.sv = ab.sdk = ab.sdv = at.sk;
   ab.H = at.H;
@@ -348,6 +335,20 @@ int stack_bwd(const T* qstack, const T* kv, const void* const* w_,
   ab.Sk = at.Sk;
   ab.Dh = at.Dh;
   ab.scale = at.scale;
+  return ab;
+}
+
+template <typename T>
+int stack_bwd(const T* qstack, const T* kv, const void* const* w_,
+              const void* state, const T* dout, T* dq0, T* dkv,
+              void* const* dw_, void* work, const Shape& s, int gelu,
+              cudaStream_t st) {
+  const T* const* w = reinterpret_cast<const T* const*>(w_);
+  T* const* dw = reinterpret_cast<T* const*>(dw_);
+  Arena ar = {static_cast<char*>(work), 0};
+  const BwdBuffers<T> buf = bwd_buffers<T>(ar, s);
+  const int M = (int)s.M(), Mk = (int)s.Mk(), D = s.D, F = s.F;
+  const long long MD = (long long)M * D;
 
   if (!s.cross) {
     CHECK((int)cudaMemsetAsync(dw[kLnkvG], 0, s.L * s.wsize(kLnkvG) *
@@ -359,58 +360,33 @@ int stack_bwd(const T* qstack, const T* kv, const void* const* w_,
   for (int l = s.L - 1; l >= 0; --l) {
     auto wl = [&](int k) { return w[k] + l * s.wsize(k); };
     auto dwl = [&](int k) { return dw[k] + l * s.wsize(k); };
+    const State<T> f = state_at<T>(state, s, l);
     const T* x = qstack + l * MD;
+    const T* kvh = s.cross ? f.kvh : f.h;
     const T* dq_in = l == s.L - 1 ? dout : buf.dq[(l + 1) & 1];
     T* dq_out = l == 0 ? dq0 : buf.dq[l & 1];
 
-    // ---- recompute the block ----
-    CHECK(ln_fwd(x, wl(kLn1G), wl(kLn1B), buf.h, M, D, st));
-    const T* kvh = buf.h;
-    if (s.cross) {
-      CHECK(ln_fwd(kv, wl(kLnkvG), wl(kLnkvB), buf.kvh, Mk, D, st));
-      kvh = buf.kvh;
-    }
-    Gemm<T> g = fwd_gemm((const T*)buf.h, wl(kWq), M, D, D, kEpiBias);
-    g.bias = wl(kBq);
-    g.out = buf.qp;
-    CHECK(gemm(g, 1, st));
-    g = fwd_gemm(kvh, wl(kWkv), Mk, 2 * D, D, kEpiBias);
-    g.bias = wl(kBkv);
-    g.out = buf.kvp;
-    CHECK(gemm(g, 1, st));
-    CHECK(attn_fwd::launch</*NORM=*/true>(at, s.B, st));
-    g = fwd_gemm((const T*)buf.ctx, wl(kWproj), M, D, D, kEpiBiasRes);
-    g.bias = wl(kBproj);
-    g.res = x;
-    g.out = buf.x1;
-    CHECK(gemm(g, 1, st));
-    CHECK(ln_fwd((const T*)buf.x1, wl(kLn2G), wl(kLn2B), buf.h2, M, D, st));
-    g = fwd_gemm((const T*)buf.h2, wl(kWfc1), M, F, D, kEpiBiasGelu);
-    g.bias = wl(kBfc1);
-    g.gelu = gelu;
-    g.out = buf.a1;
-    g.out2 = buf.a2;
-    CHECK(gemm(g, 1, st));
-
     // ---- the MLP half ----
-    g = bwd_gemm(dq_in, wl(kWfc2), M, F, D, kEpiGeluGrad);
-    g.aux = buf.a1;
+    Gemm<T> g = bwd_gemm(dq_in, wl(kWfc2), M, F, D, kEpiGeluGrad);
+    g.aux = f.a1;
     g.gelu = gelu;
     g.outf = buf.da1_f;
     g.out = buf.da1_t;
     CHECK(gemm(g, 1, st));
-    CHECK(weight_grad(dq_in, (const T*)buf.a2, D, F, M, buf.wpart,
+    CHECK(weight_grad(dq_in, (const T*)f.a2, D, F, M, buf.wpart,
                       dwl(kWfc2), st));
     CHECK(bias_grad(dq_in, M, D, buf.colpart, dwl(kBfc2), st));
     g = bwd_gemm((const T*)buf.da1_t, wl(kWfc1), M, D, F, kEpiF32);
     g.outf = buf.dh2_f;
     CHECK(gemm(g, 1, st));
-    CHECK(weight_grad((const T*)buf.da1_t, (const T*)buf.h2, F, D, M,
+    CHECK(weight_grad((const T*)buf.da1_t, (const T*)f.h2, F, D, M,
                       buf.wpart, dwl(kWfc1), st));
     CHECK(bias_grad((const float*)buf.da1_f, M, F, buf.colpart, dwl(kBfc1),
                     st));
     LnBwd<T> lb = {};
-    lb.x = buf.x1;
+    lb.x = f.x1;
+    lb.mean = f.mean2;
+    lb.rstd = f.rstd2;
     lb.dy = buf.dh2_f;
     lb.g = wl(kLn2G);
     lb.res_t = dq_in;
@@ -424,15 +400,15 @@ int stack_bwd(const T* qstack, const T* kv, const void* const* w_,
     g = bwd_gemm((const T*)buf.dx1_t, wl(kWproj), M, D, D, kEpiRound);
     g.out = buf.dctx_t;
     CHECK(gemm(g, 1, st));
-    CHECK(weight_grad((const T*)buf.dx1_t, (const T*)buf.ctx, D, D, M,
+    CHECK(weight_grad((const T*)buf.dx1_t, (const T*)f.ctx, D, D, M,
                       buf.wpart, dwl(kWproj), st));
     CHECK(bias_grad((const float*)buf.dx1_f, M, D, buf.colpart,
                     dwl(kBproj), st));
-    CHECK(attn_bwd::launch(ab, s.B, st));
+    CHECK(attn_bwd::launch(block_attention_bwd(s, f, buf), s.B, st));
     g = bwd_gemm((const T*)buf.dqp_t, wl(kWq), M, D, D, kEpiF32);
     g.outf = buf.dh_f;
     CHECK(gemm(g, 1, st));
-    CHECK(weight_grad((const T*)buf.dqp_t, (const T*)buf.h, D, D, M,
+    CHECK(weight_grad((const T*)buf.dqp_t, (const T*)f.h, D, D, M,
                       buf.wpart, dwl(kWq), st));
     CHECK(bias_grad((const float*)buf.dqp_f, M, D, buf.colpart, dwl(kBq),
                     st));
@@ -446,6 +422,8 @@ int stack_bwd(const T* qstack, const T* kv, const void* const* w_,
                     dwl(kBkv), st));
     lb = LnBwd<T>{};
     lb.x = x;
+    lb.mean = f.mean1;
+    lb.rstd = f.rstd1;
     lb.dy = buf.dh_f;
     lb.g = wl(kLn1G);
     lb.res_f = buf.dx1_f;
@@ -456,6 +434,8 @@ int stack_bwd(const T* qstack, const T* kv, const void* const* w_,
     if (s.cross) {
       lb = LnBwd<T>{};
       lb.x = kv;
+      lb.mean = f.meankv;
+      lb.rstd = f.rstdkv;
       lb.dy = buf.dkvh_f;
       lb.g = wl(kLnkvG);
       lb.out_t = dkv;
@@ -490,29 +470,31 @@ long long block_stack_bwd_workspace(int B, int Sq, int Sk, int D, int H,
   return (long long)ar.used;
 }
 
-// qstack (L, B, Sq, D) from block_stack_fwd; kv (B, Sk, D) or null (self);
+// qstack (L, B, Sq, D) and state (block_stack_fwd_state bytes) from
+// block_stack_fwd run with a state buffer; kv (B, Sk, D) or null (self);
 // w: the 16 stacked weights (W_KEYS order); dout (B, Sq, D). Writes dq0
 // (B, Sq, D), dkv (B, Sk, D) (cross only) and dw: 16 tensors shaped as w.
 // work: block_stack_bwd_workspace bytes. All contiguous, one dtype
 // (0 float32, 1 bfloat16); gelu 0 tanh, 1 erf. Returns a cudaError_t.
 int block_stack_bwd(const void* qstack, const void* kv, const void* const* w,
-                    const void* dout, void* dq0, void* dkv,
+                    const void* state, const void* dout, void* dq0, void* dkv,
                     void* const* dw, void* work, int B, int Sq, int Sk,
                     int D, int H, int F, int L, int gelu, int cross,
                     int dtype, void* stream) {
   const Shape s = make_shape(B, Sq, Sk, D, H, F, L, cross);
-  if (!valid_shape(s) || (cross && (kv == nullptr || dkv == nullptr)))
+  if (!valid_shape(s) || state == nullptr ||
+      (cross && (kv == nullptr || dkv == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return stack_bwd(static_cast<const float*>(qstack),
-                     static_cast<const float*>(kv), w,
+                     static_cast<const float*>(kv), w, state,
                      static_cast<const float*>(dout),
                      static_cast<float*>(dq0), static_cast<float*>(dkv), dw,
                      work, s, gelu, st);
   if (dtype == 1)
     return stack_bwd(static_cast<const __nv_bfloat16*>(qstack),
-                     static_cast<const __nv_bfloat16*>(kv), w,
+                     static_cast<const __nv_bfloat16*>(kv), w, state,
                      static_cast<const __nv_bfloat16*>(dout),
                      static_cast<__nv_bfloat16*>(dq0),
                      static_cast<__nv_bfloat16*>(dkv), dw, work, s, gelu, st);

@@ -163,8 +163,10 @@ def load_block_stack_fwd() -> ctypes.CDLL:
     vp, i32 = _VP, _I32
     lib.block_stack_fwd_workspace.argtypes = [i32] * 7
     lib.block_stack_fwd_workspace.restype = _LL
-    lib.block_stack_fwd.argtypes = [vp, vp, _PTRS, vp, vp, vp] + [i32] * 10 \
-        + [vp]
+    lib.block_stack_fwd_state.argtypes = [i32] * 9 + [_STRIDES]
+    lib.block_stack_fwd_state.restype = _LL
+    lib.block_stack_fwd.argtypes = [vp, vp, _PTRS, vp, vp, vp, vp] \
+        + [i32] * 10 + [vp]
     lib.block_stack_fwd.restype = i32
     lib.block_stack_error_string.argtypes = [i32]
     lib.block_stack_error_string.restype = ctypes.c_char_p
@@ -178,8 +180,8 @@ def load_block_stack_bwd() -> ctypes.CDLL:
     vp, i32 = _VP, _I32
     lib.block_stack_bwd_workspace.argtypes = [i32] * 8
     lib.block_stack_bwd_workspace.restype = _LL
-    lib.block_stack_bwd.argtypes = [vp, vp, _PTRS, vp, vp, vp, _PTRS, vp] \
-        + [i32] * 10 + [vp]
+    lib.block_stack_bwd.argtypes = [vp, vp, _PTRS, vp, vp, vp, vp, _PTRS,
+                                    vp] + [i32] * 10 + [vp]
     lib.block_stack_bwd.restype = i32
     lib.block_stack_bwd_error_string.argtypes = [i32]
     lib.block_stack_bwd_error_string.restype = ctypes.c_char_p

@@ -25,27 +25,45 @@ ignored.
   in ``dout``'s dtype, dkv summed over the blocks and rounded to its dtype
   after each, weight gradients summed in fp32 over the whole batch and then
   cast to the weights' dtype, zero lnkv gradients and dkv in self mode.
+* The training state. The TPU kernel's backward recomputes each block from
+  its input, the one thing its forward keeps (``qstack``). On the card #6
+  keeps, when a gradient is wanted, each block's activations and row
+  statistics too (``STATE_KEYS``: h, kvh, qp, kvp, ctx, x1, h2, a1, a2 in
+  the compute dtype; the attention's row log-sum-exp and the LayerNorms'
+  row mean and rstd in fp32), in one uint8 buffer laid out by
+  ``csrc/block_common.cuh`` (1.77 GB for the flagship encoder's 12 blocks
+  and 1.08 GB for the CrossMAE decoder's 4, at B=256 in bf16), and #7 reads
+  it and recomputes nothing. ``state_views`` shows that buffer as the plain
+  versions' state: one dict of ``STATE_KEYS`` per block, which
+  ``fused_block_stack_ref(..., keep_state=True)`` also returns and
+  ``fused_block_stack_bwd_ref(..., state=...)`` reads (without one it
+  recomputes, as the TPU kernel does).
 * ``fused_block_stack``: a ``torch.autograd.Function`` with kernel #6
   forward and kernel #7 backward (``csrc/block_stack_fwd.cu``,
-  ``csrc/block_stack_bwd.cu``); ``fused_block_stack_fwd_plain_bwd``: #6
-  forward, then a per-block recompute backward through torch.autograd of
-  ``_plain_block`` from each block's saved input, as the JAX package's
+  ``csrc/block_stack_bwd.cu``); the state is kept, and saved for the
+  backward, only where grad mode is on and an input needs a gradient.
+  ``fused_block_stack_fwd_plain_bwd``: #6 forward with no state, then a
+  per-block recompute backward through torch.autograd of ``_plain_block``
+  from each block's saved input, as the JAX package's
   ``fused_block_stack_fwd_xla_bwd``. On a CPU tensor both take the plain
   versions; on a CUDA tensor they launch the kernels or raise (also for
   heads wider than ``MAX_HEAD_DIM``: the kernels run the attention bodies
-  of ``ops/attention.py``'s kernels, which stop there). Launches are
-  counted in ``fused_block_stack.launches`` (#6, from either wrapper) and
-  ``fused_block_stack.bwd_launches`` (#7), one per stack.
+  of ``ops/attention.py``'s kernels, which stop there; and for #7 without
+  #6's state). Launches are counted in ``fused_block_stack.launches`` (#6,
+  from either wrapper) and ``fused_block_stack.bwd_launches`` (#7), one per
+  stack, and the state buffers #6's wrapper allocates in
+  ``fused_block_stack.state_allocs``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from mae_clip_torch.ops.attention import (_DTYPE_CODES, MAX_HEAD_DIM,
                                           _count, _ptr, _raise_on_error,
@@ -58,8 +76,13 @@ LN_EPS = 1e-6
 GELU_C = 0.7978845608028654        # sqrt(2/pi), jax.nn.gelu(approximate=True)
 GELU_A = 0.044715
 _GELU_CODES = {"tanh": 0, "erf": 1}
+# What #6 keeps of each block for #7, in csrc/block_common.cuh's order (State):
+# activations in the compute dtype, then fp32 row statistics.
+STATE_KEYS = ("h", "kvh", "qp", "kvp", "ctx", "x1", "h2", "a1", "a2", "lse",
+              "mean1", "rstd1", "mean2", "rstd2", "meankv", "rstdkv")
 
 Weights = Dict[str, torch.Tensor]
+State = List[Dict[str, Optional[torch.Tensor]]]
 
 
 # ---------------------------------------------------------------------------
@@ -67,13 +90,18 @@ Weights = Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 def _ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
-    """fp32-stat LayerNorm: (y in x's dtype, xhat, rstd)."""
+    """fp32-stat LayerNorm: (y in x's dtype, mean, rstd), the statistics
+    fp32 (..., 1)."""
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     xc = xf - mu
     rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + LN_EPS)
-    xhat = xc * rstd
-    return (xhat * g.float() + b.float()).to(x.dtype), xhat, rstd
+    return ((xc * rstd) * g.float() + b.float()).to(x.dtype), mu, rstd
+
+
+def _xhat(x: torch.Tensor, mu: torch.Tensor, rstd: torch.Tensor):
+    """x normalised by its saved row statistics, as ``_ln`` normalises."""
+    return (x.float() - mu) * rstd
 
 
 def _ln_bwd(dy, xhat, rstd, g):
@@ -133,19 +161,28 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * dh)
 
 
-def _attention(qp, kvp, n_heads: int):
-    """Single-shot softmax attention per sample on packed projections:
-    qp (B, Sq, D), kvp (B, Sk, 2D) with k columns then v columns. Returns
-    ctx (B, Sq, D) in qp's dtype and the fp32 probabilities (B, H, Sq, Sk)."""
+def _softmax(qp, kvp, n_heads: int):
+    """The single-shot softmax over the keys per sample and head, on packed
+    projections qp (B, Sq, D), kvp (B, Sk, 2D) with k columns then v
+    columns: the fp32 probabilities (B, H, Sq, Sk) and the row log-sum-exp
+    (B, H, Sq)."""
     d = qp.shape[-1]
     scale = 1.0 / float(d // n_heads) ** 0.5
-    q = _heads(qp, n_heads)
-    k, v = _heads(kvp[..., :d], n_heads), _heads(kvp[..., d:], n_heads)
+    q, k = _heads(qp, n_heads), _heads(kvp[..., :d], n_heads)
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    p = p / p.sum(-1, keepdim=True)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    total = e.sum(-1, keepdim=True)
+    return e / total, (m + torch.log(total)).squeeze(-1)
+
+
+def _attention(qp, kvp, n_heads: int):
+    """Softmax attention per sample on packed projections (``_softmax``):
+    ctx (B, Sq, D) in qp's dtype and the fp32 row log-sum-exp (B, H, Sq)."""
+    p, lse = _softmax(qp, kvp, n_heads)
+    v = _heads(kvp[..., qp.shape[-1]:], n_heads)
     ctx = torch.matmul(p.to(qp.dtype).float(), v).to(qp.dtype)
-    return _merge(ctx), p
+    return _merge(ctx), lse
 
 
 def _attention_bwd(qp, kvp, p, dctx, n_heads: int, ctx=None):
@@ -173,23 +210,24 @@ def _attention_bwd(qp, kvp, p, dctx, n_heads: int, ctx=None):
 
 
 def _block(x, kv, wl: Weights, n_heads: int, gelu: str, cross: bool):
-    """One block of the stack with the kernels' roundings; returns its output
-    and the intermediates the backward reuses."""
+    """One block of the stack with the kernels' roundings: its output and
+    its state, the ``STATE_KEYS`` (kvh, meankv and rstdkv None in self
+    mode)."""
     dt = x.dtype
-    h, xhat1, rstd1 = _ln(x, wl["ln1_g"], wl["ln1_b"])
-    kvh, xhatkv, rstdkv = (_ln(kv, wl["lnkv_g"], wl["lnkv_b"]) if cross
-                           else (h, None, None))
+    h, mean1, rstd1 = _ln(x, wl["ln1_g"], wl["ln1_b"])
+    kvh, meankv, rstdkv = (_ln(kv, wl["lnkv_g"], wl["lnkv_b"]) if cross
+                           else (None, None, None))
     qp = _proj(h, wl["wq"], wl["bq"], dt)
-    kvp = _proj(kvh, wl["wkv"], wl["bkv"], dt)
-    ctx, p = _attention(qp, kvp, n_heads)
+    kvp = _proj(kvh if cross else h, wl["wkv"], wl["bkv"], dt)
+    ctx, lse = _attention(qp, kvp, n_heads)
     x1 = x + _proj(ctx, wl["wproj"], wl["bproj"], dt)
-    h2, xhat2, rstd2 = _ln(x1, wl["ln2_g"], wl["ln2_b"])
+    h2, mean2, rstd2 = _ln(x1, wl["ln2_g"], wl["ln2_b"])
     a1 = _proj(h2, wl["wfc1"], wl["bfc1"], dt)
     a2 = _gelu(a1.float(), gelu).to(dt)
     out = x1 + _proj(a2, wl["wfc2"], wl["bfc2"], dt)
-    return out, dict(h=h, xhat1=xhat1, rstd1=rstd1, kvh=kvh, xhatkv=xhatkv,
-                     rstdkv=rstdkv, qp=qp, kvp=kvp, ctx=ctx, p=p, x1=x1,
-                     h2=h2, xhat2=xhat2, rstd2=rstd2, a1=a1, a2=a2)
+    return out, dict(h=h, kvh=kvh, qp=qp, kvp=kvp, ctx=ctx, x1=x1, h2=h2,
+                     a1=a1, a2=a2, lse=lse, mean1=mean1, rstd1=rstd1,
+                     mean2=mean2, rstd2=rstd2, meankv=meankv, rstdkv=rstdkv)
 
 
 def _block_weights(w: Weights, l: int) -> Weights:
@@ -198,57 +236,73 @@ def _block_weights(w: Weights, l: int) -> Weights:
 
 def fused_block_stack_ref(q0: torch.Tensor, kv: torch.Tensor, w: Weights,
                           n_heads: int, gelu: str = "tanh",
-                          cross: bool = True
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+                          cross: bool = True, keep_state: bool = False):
     """Plain version of kernel #6: (out (B, Sq, D), qstack (L, B, Sq, D)),
-    qstack[l] the input of block l."""
-    x, inputs = q0, []
+    qstack[l] the input of block l; with ``keep_state`` also the state of
+    every block, one dict of ``STATE_KEYS`` each."""
+    x, inputs, state = q0, [], []
     for l in range(w["wq"].shape[0]):
         inputs.append(x)
-        x, _ = _block(x, kv, _block_weights(w, l), n_heads, gelu, cross)
+        x, st = _block(x, kv, _block_weights(w, l), n_heads, gelu, cross)
+        if keep_state:
+            state.append(st)
+    if keep_state:
+        return x, torch.stack(inputs), state
     return x, torch.stack(inputs)
 
 
 def fused_block_stack_bwd_ref(qstack: torch.Tensor, kv: torch.Tensor,
                               w: Weights, dout: torch.Tensor, n_heads: int,
                               gelu: str = "tanh", cross: bool = True,
-                              delta_from_ctx: bool = False):
+                              delta_from_ctx: bool = False,
+                              state: Optional[State] = None):
     """Plain version of kernel #7: (dq0, dkv, dw) for the output gradient
-    ``dout``, walking the blocks in reverse from their saved inputs. The
-    attention backward's row sum is the TPU kernel's rowsum(P * dP), or
-    with ``delta_from_ctx`` the kernel's own rowsum(dO * ctx)."""
+    ``dout``, walking the blocks in reverse from their saved inputs and the
+    forward's ``state`` (``fused_block_stack_ref(..., keep_state=True)``'s,
+    or ``state_views`` of #6's buffer), or, with none, from each block
+    recomputed from its input as the TPU kernel does: the same values. P is
+    taken from the state's qp and kvp by the forward's softmax (#7 takes it
+    from the saved log-sum-exp). The attention backward's row sum is the
+    TPU kernel's rowsum(P * dP), or with ``delta_from_ctx`` the kernel's own
+    rowsum(dO * ctx)."""
     n_blocks, dt = w["wq"].shape[0], qstack.dtype
     dq, dkv, dws = dout, None, [None] * n_blocks
     for l in reversed(range(n_blocks)):
         wl = _block_weights(w, l)
-        _, f = _block(qstack[l], kv, wl, n_heads, gelu, cross)
+        f = (state[l] if state is not None else
+             _block(qstack[l], kv, wl, n_heads, gelu, cross)[1])
+        kvh = f["kvh"] if cross else f["h"]
+        xhat1 = _xhat(qstack[l], f["mean1"], f["rstd1"])
+        xhat2 = _xhat(f["x1"], f["mean2"], f["rstd2"])
+        p, _ = _softmax(f["qp"], f["kvp"], n_heads)
         dqo = dq.float()
         da1 = _mm_back(dq.to(dt), wl["wfc2"]) * _gelu_grad(f["a1"].float(),
                                                            gelu)
         dh2 = _mm_back(da1.to(dt), wl["wfc1"])
-        dx1 = dqo + _ln_bwd(dh2, f["xhat2"], f["rstd2"], wl["ln2_g"])
+        dx1 = dqo + _ln_bwd(dh2, xhat2, f["rstd2"], wl["ln2_g"])
         dctx = _mm_back(dx1.to(dt), wl["wproj"]).to(dt)
-        dqp, dkvp = _attention_bwd(f["qp"], f["kvp"], f["p"], dctx, n_heads,
+        dqp, dkvp = _attention_bwd(f["qp"], f["kvp"], p, dctx, n_heads,
                                    f["ctx"] if delta_from_ctx else None)
         dh = _mm_back(dqp.to(dt), wl["wq"])
         dkvh = _mm_back(dkvp.to(dt), wl["wkv"])
         if cross:
-            dkv_l = _ln_bwd(dkvh, f["xhatkv"], f["rstdkv"], wl["lnkv_g"])
+            xhatkv = _xhat(kv, f["meankv"], f["rstdkv"])
+            dkv_l = _ln_bwd(dkvh, xhatkv, f["rstdkv"], wl["lnkv_g"])
             dkv = (dkv_l if dkv is None else dkv.float() + dkv_l).to(
                 dout.dtype)
-            lnkv = (_colsum(dkvh * f["xhatkv"]), _colsum(dkvh))
+            lnkv = (_colsum(dkvh * xhatkv), _colsum(dkvh))
         else:
             dh = dh + dkvh
             zero = torch.zeros_like(wl["lnkv_g"], dtype=torch.float32)
             lnkv = (zero, zero)
-        dx = dx1 + _ln_bwd(dh, f["xhat1"], f["rstd1"], wl["ln1_g"])
+        dx = dx1 + _ln_bwd(dh, xhat1, f["rstd1"], wl["ln1_g"])
         grads = {
-            "ln1_g": _colsum(dh * f["xhat1"]), "ln1_b": _colsum(dh),
+            "ln1_g": _colsum(dh * xhat1), "ln1_b": _colsum(dh),
             "lnkv_g": lnkv[0], "lnkv_b": lnkv[1],
             "wq": _dweight(dqp.to(dt), f["h"]), "bq": _colsum(dqp),
-            "wkv": _dweight(dkvp.to(dt), f["kvh"]), "bkv": _colsum(dkvp),
+            "wkv": _dweight(dkvp.to(dt), kvh), "bkv": _colsum(dkvp),
             "wproj": _dweight(dx1.to(dt), f["ctx"]), "bproj": _colsum(dx1),
-            "ln2_g": _colsum(dh2 * f["xhat2"]), "ln2_b": _colsum(dh2),
+            "ln2_g": _colsum(dh2 * xhat2), "ln2_b": _colsum(dh2),
             "wfc1": _dweight(da1.to(dt), f["h2"]), "bfc1": _colsum(da1),
             "wfc2": _dweight(dq.to(dt), f["a2"]), "bfc2": _colsum(dqo)}
         dws[l] = {k: v.to(w[k].dtype) for k, v in grads.items()}
@@ -336,44 +390,114 @@ def _weight_ptrs(w: Weights):
     return (ctypes.c_void_p * len(W_KEYS))(*[_ptr(w[k]) for k in W_KEYS])
 
 
-def _launch_fwd(q0, kv, w: Weights, n_heads: int, gelu: str, cross: bool):
+def _shape(x: torch.Tensor, kv, w: Weights, n_heads: int, cross: bool):
+    """(B, Sq, Sk, D, H, F, L, cross, dtype code) as the C entries take
+    them, for q0 (B, Sq, D) or qstack (L, B, Sq, D)."""
+    *_, b, sq, d = x.shape
+    return (b, sq, kv.shape[1] if cross else sq, d, n_heads,
+            w["wfc1"].shape[1], w["wq"].shape[0], int(cross),
+            _DTYPE_CODES[x.dtype])
+
+
+def _state_layout(shape) -> Tuple[int, list]:
+    """(bytes of #6's state buffer, [the offset of each of ``STATE_KEYS``
+    within a block's slice, or -1, then the slice's size])."""
+    from mae_clip_torch.ops._build import load_block_stack_fwd
+
+    offsets = (ctypes.c_longlong * (len(STATE_KEYS) + 1))()
+    size = load_block_stack_fwd().block_stack_fwd_state(*shape, offsets)
+    return size, list(offsets)
+
+
+def _launch_fwd(q0, kv, w: Weights, n_heads: int, gelu: str, cross: bool,
+                keep_state: bool = False):
+    """Kernel #6: (out, qstack), and with ``keep_state`` also the uint8
+    state buffer that #7 reads."""
     from mae_clip_torch.ops._build import load_block_stack_fwd
 
     lib = load_block_stack_fwd()
     q0 = q0.contiguous()
     kv = kv.contiguous() if cross else None
     w = {k: v.contiguous() for k, v in w.items()}
-    b, sq, d = q0.shape
-    sk = kv.shape[1] if cross else sq
-    f, n_blocks = w["wfc1"].shape[1], w["wq"].shape[0]
-    dtype = _DTYPE_CODES[q0.dtype]
+    shape = _shape(q0, kv, w, n_heads, cross)
+    b, sq, sk, d, _, f, n_blocks, _, dtype = shape
     out = torch.empty_like(q0)
     qstack = torch.empty((n_blocks, b, sq, d), dtype=q0.dtype,
                          device=q0.device)
-    work = torch.empty(lib.block_stack_fwd_workspace(b, sq, sk, d, f,
-                                                     int(cross), dtype),
-                       dtype=torch.uint8, device=q0.device)
+    work = state = None
+    if keep_state:
+        state = torch.empty(_state_layout(shape)[0], dtype=torch.uint8,
+                            device=q0.device)
+        _count(fused_block_stack, "state_allocs")
+    else:
+        work = torch.empty(lib.block_stack_fwd_workspace(b, sq, sk, d, f,
+                                                         int(cross), dtype),
+                           dtype=torch.uint8, device=q0.device)
     err = lib.block_stack_fwd(
         _ptr(q0), _ptr(kv), _weight_ptrs(w), _ptr(out), _ptr(qstack),
-        _ptr(work), b, sq, sk, d, n_heads, f, n_blocks, _GELU_CODES[gelu],
-        int(cross), dtype, _stream(q0))
+        _ptr(work), _ptr(state), b, sq, sk, d, n_heads, f, n_blocks,
+        _GELU_CODES[gelu], int(cross), dtype, _stream(q0))
     _raise_on_error(err, lib.block_stack_error_string, "fused_block_stack")
     _count(fused_block_stack, "launches")
-    return out, qstack
+    return (out, qstack, state) if keep_state else (out, qstack)
 
 
-def _launch_bwd(qstack, kv, w: Weights, dout, n_heads: int, gelu: str,
-                cross: bool):
+def state_views(state: torch.Tensor, qstack: torch.Tensor, kv, w: Weights,
+                n_heads: int, cross: bool) -> State:
+    """#6's state buffer as the plain versions' state: per block a dict of
+    ``STATE_KEYS``, views into the buffer (h, qp, ctx, x1, h2 (B, Sq, D),
+    kvh (B, Sk, D), kvp (B, Sk, 2D), a1, a2 (B, Sq, F), lse (B, H, Sq),
+    the row statistics (B, Sq, 1) and (B, Sk, 1); None where absent)."""
+    shape = _shape(qstack, kv, w, n_heads, cross)
+    b, sq, sk, d, _, f, n_blocks, _, _ = shape
+    size, offsets = _state_layout(shape)
+    if state.dtype != torch.uint8 or state.numel() != size:
+        raise ValueError(f"state_views: a uint8 buffer of {size} bytes "
+                         f"expected, got {state.numel()} of {state.dtype}")
+    rows, krows = (b, sq), (b, sk)
+    shapes = dict(h=rows + (d,), kvh=krows + (d,), qp=rows + (d,),
+                  kvp=krows + (2 * d,), ctx=rows + (d,), x1=rows + (d,),
+                  h2=rows + (d,), a1=rows + (f,), a2=rows + (f,),
+                  lse=(b, n_heads, sq), mean1=rows + (1,),
+                  rstd1=rows + (1,), mean2=rows + (1,), rstd2=rows + (1,),
+                  meankv=krows + (1,), rstdkv=krows + (1,))
+    views = []
+    for l in range(n_blocks):
+        block = {}
+        for i, k in enumerate(STATE_KEYS):
+            if offsets[i] < 0:
+                block[k] = None
+                continue
+            dt = (qstack.dtype if i < STATE_KEYS.index("lse")
+                  else torch.float32)
+            start = l * offsets[-1] + offsets[i]
+            n = math.prod(shapes[k]) * dt.itemsize
+            block[k] = state[start:start + n].view(dt).view(shapes[k])
+        views.append(block)
+    return views
+
+
+def _launch_bwd(qstack, kv, w: Weights, dout, state, n_heads: int,
+                gelu: str, cross: bool):
+    """Kernel #7 from #6's ``qstack`` and state buffer."""
     from mae_clip_torch.ops._build import load_block_stack_bwd
 
     lib = load_block_stack_bwd()
     kv = kv.contiguous() if cross else None
     dout = dout.to(qstack.dtype).contiguous()
     w = {k: v.contiguous() for k, v in w.items()}
-    n_blocks, b, sq, d = qstack.shape
-    sk = kv.shape[1] if cross else sq
-    f = w["wfc1"].shape[1]
-    dtype = _DTYPE_CODES[qstack.dtype]
+    shape = _shape(qstack, kv, w, n_heads, cross)
+    b, sq, sk, d, _, f, n_blocks, _, dtype = shape
+    size = _state_layout(shape)[0]
+    if not (isinstance(state, torch.Tensor) and state.dtype == torch.uint8
+            and state.device == qstack.device and state.numel() == size
+            and state.is_contiguous()):
+        got = (f"{state.numel()} bytes of {state.dtype} on {state.device}"
+               if isinstance(state, torch.Tensor) else repr(type(state)))
+        raise ValueError(
+            "fused_block_stack backward: kernel #7 reads the state that "
+            f"kernel #6 keeps for it (_launch_fwd(..., keep_state=True): "
+            f"{size} bytes of uint8 on {qstack.device}); got {got}")
     dq0 = torch.empty_like(dout)
     dkv = torch.empty_like(kv) if cross else None
     dw = {k: torch.empty_like(v) for k, v in w.items()}
@@ -381,9 +505,10 @@ def _launch_bwd(qstack, kv, w: Weights, dout, n_heads: int, gelu: str,
                                                      f, int(cross), dtype),
                        dtype=torch.uint8, device=qstack.device)
     err = lib.block_stack_bwd(
-        _ptr(qstack), _ptr(kv), _weight_ptrs(w), _ptr(dout), _ptr(dq0),
-        _ptr(dkv), _weight_ptrs(dw), _ptr(work), b, sq, sk, d, n_heads, f,
-        n_blocks, _GELU_CODES[gelu], int(cross), dtype, _stream(qstack))
+        _ptr(qstack), _ptr(kv), _weight_ptrs(w), _ptr(state), _ptr(dout),
+        _ptr(dq0), _ptr(dkv), _weight_ptrs(dw), _ptr(work), b, sq, sk, d,
+        n_heads, f, n_blocks, _GELU_CODES[gelu], int(cross), dtype,
+        _stream(qstack))
     _raise_on_error(err, lib.block_stack_bwd_error_string,
                     "fused_block_stack backward")
     _count(fused_block_stack, "bwd_launches")
@@ -392,47 +517,61 @@ def _launch_bwd(qstack, kv, w: Weights, dout, n_heads: int, gelu: str,
     return dq0, dkv, dw
 
 
-def _stack_forward(q0, kv, w, n_heads, gelu, cross):
+def _stack_forward(q0, kv, w, n_heads, gelu, cross, keep_state=False):
     if q0.device.type == "cpu":
-        return fused_block_stack_ref(q0, kv, w, n_heads, gelu, cross)
-    return _launch_fwd(q0, kv, w, n_heads, gelu, cross)
+        return fused_block_stack_ref(q0, kv, w, n_heads, gelu, cross,
+                                     keep_state)
+    return _launch_fwd(q0, kv, w, n_heads, gelu, cross, keep_state)
 
 
-def fused_block_stack_bwd(qstack, kv, w: Weights, dout, n_heads: int,
+def fused_block_stack_bwd(qstack, kv, w: Weights, dout, state, n_heads: int,
                           gelu: str = "tanh", cross: bool = True):
-    """(dq0, dkv, dw) of the stack: kernel #7 on a CUDA tensor, its plain
-    version on a CPU one."""
+    """(dq0, dkv, dw) of the stack from the forward's ``qstack`` and state:
+    kernel #7 on a CUDA tensor (#6's state buffer, which it needs), its
+    plain version on a CPU one (the plain forward's state, or None to
+    recompute)."""
     if qstack.device.type == "cpu":
         return fused_block_stack_bwd_ref(qstack, kv, w, dout, n_heads, gelu,
-                                         cross)
-    return _launch_bwd(qstack, kv, w, dout, n_heads, gelu, cross)
+                                         cross, state=state)
+    return _launch_bwd(qstack, kv, w, dout, state, n_heads, gelu, cross)
 
 
 class _FusedBlockStack(torch.autograd.Function):
     """Kernels #6 (forward) and #7 (backward); plain versions on the CPU.
-    Saves each block's input (qstack); the backward recomputes the rest."""
+    Where a gradient is wanted (grad mode on, and an input needs one), the
+    forward keeps each block's input (qstack) and its state and saves both;
+    the backward reads them and recomputes nothing. Else no state is kept:
+    the serving tower and evaluation allocate none."""
 
     @staticmethod
-    def forward(ctx, q0, kv, n_heads, gelu, cross, *ws):
+    def forward(ctx, q0, kv, n_heads, gelu, cross, grad_mode, *ws):
         w = dict(zip(W_KEYS, ws))
-        out, qstack = _stack_forward(q0, kv, w, n_heads, gelu, cross)
-        ctx.save_for_backward(qstack, kv, *ws)
+        if not (grad_mode and any(ctx.needs_input_grad)):
+            return _stack_forward(q0, kv, w, n_heads, gelu, cross)[0]
+        # keep_state goes positionally: tests wrap _stack_forward in *args.
+        out, qstack, state = _stack_forward(q0, kv, w, n_heads, gelu, cross,
+                                            True)
+        leaves, ctx.state_spec = tree_flatten(state)
+        ctx.save_for_backward(qstack, kv, *ws, *leaves)
         ctx.cfg = (n_heads, gelu, cross)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qstack, kv, *ws = ctx.saved_tensors
+        qstack, kv, *rest = ctx.saved_tensors
+        ws, leaves = rest[:len(W_KEYS)], rest[len(W_KEYS):]
         n_heads, gelu, cross = ctx.cfg
         dq0, dkv, dw = fused_block_stack_bwd(
-            qstack, kv, dict(zip(W_KEYS, ws)), dout, n_heads, gelu, cross)
-        return (dq0, dkv if cross else None, None, None, None,
+            qstack, kv, dict(zip(W_KEYS, ws)), dout,
+            tree_unflatten(leaves, ctx.state_spec), n_heads, gelu, cross)
+        return (dq0, dkv if cross else None, None, None, None, None,
                 *[dw[k] for k in W_KEYS])
 
 
 class _FusedBlockStackFwdPlainBwd(torch.autograd.Function):
-    """Kernel #6 forward; the backward recomputes each block in plain torch
-    from its saved input and runs autograd through it, in reverse."""
+    """Kernel #6 forward (no state kept); the backward recomputes each block
+    in plain torch from its saved input and runs autograd through it, in
+    reverse."""
 
     @staticmethod
     def forward(ctx, q0, kv, n_heads, gelu, cross, *ws):
@@ -467,23 +606,21 @@ class _FusedBlockStackFwdPlainBwd(torch.autograd.Function):
                 *[torch.stack([d[k] for d in dws]) for k in W_KEYS])
 
 
-def _apply(fn, q0, kv, w: Weights, n_heads: int, gelu: str, cross: bool):
-    _check_inputs("fused_block_stack", q0, kv, w, n_heads, gelu, cross)
-    return fn.apply(q0, kv if cross else None, n_heads, gelu, cross,
-                    *[w[k] for k in W_KEYS])
-
-
 def fused_block_stack(q0: torch.Tensor, kv: Optional[torch.Tensor],
                       w: Weights, n_heads: int, gelu: str = "tanh",
                       cross: bool = True) -> torch.Tensor:
     """Run a stack of pre-LN blocks: q0 (B, Sq, D), kv (B, Sk, D) (ignored
     with ``cross=False``, where the gradient flows through q0 alone), the
     stacked weights ``w``; returns the last block's output (B, Sq, D)."""
-    return _apply(_FusedBlockStack, q0, kv, w, n_heads, gelu, cross)
+    _check_inputs("fused_block_stack", q0, kv, w, n_heads, gelu, cross)
+    return _FusedBlockStack.apply(q0, kv if cross else None, n_heads, gelu,
+                                  cross, torch.is_grad_enabled(),
+                                  *[w[k] for k in W_KEYS])
 
 
 fused_block_stack.launches = 0
 fused_block_stack.bwd_launches = 0
+fused_block_stack.state_allocs = 0
 
 
 def fused_block_stack_fwd_plain_bwd(q0: torch.Tensor,
@@ -492,5 +629,7 @@ def fused_block_stack_fwd_plain_bwd(q0: torch.Tensor,
                                     cross: bool = True) -> torch.Tensor:
     """``fused_block_stack`` with kernel #6's forward and a per-block plain
     recompute backward (``fused_blocks='fwd'``)."""
-    return _apply(_FusedBlockStackFwdPlainBwd, q0, kv, w, n_heads, gelu,
-                  cross)
+    _check_inputs("fused_block_stack", q0, kv, w, n_heads, gelu, cross)
+    return _FusedBlockStackFwdPlainBwd.apply(q0, kv if cross else None,
+                                             n_heads, gelu, cross,
+                                             *[w[k] for k in W_KEYS])

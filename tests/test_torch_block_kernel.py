@@ -3,15 +3,20 @@ CUDA kernels (#6 forward, #7 backward) and the ``fused_blocks`` gate.
 
 On the CPU: the explicit backward ``fused_block_stack_bwd_ref`` against
 torch.autograd through the plain forward ``fused_block_stack_ref`` (fp32,
-atol 1e-5 / rtol 1e-4: the same math summed in another order), the gate's
-decisions, and that the wrappers take the plain versions for CPU tensors.
-On a CUDA card (tests marked ``cuda``): each kernel against its plain
-version on the same inputs, fp32 within 1e-4 * max(1, max |plain|) and bf16
-within 2e-2 * max(1, max |plain|) (the kernels sum in another order, and in
-bf16 one rounding that goes the other way travels through the later
-blocks), for the output, dq0, dkv and all 16 weight gradients, and the
-launch counters. This file imports neither JAX nor the JAX package, so the
-card-only tests run where those are not installed
+atol 1e-5 / rtol 1e-4: the same math summed in another order), the plain
+backward from the plain forward's state against the recomputing one (bit
+for bit), when the autograd wrappers keep a state, the gate's decisions,
+and that the wrappers take the plain versions for CPU tensors. On a CUDA
+card (tests marked ``cuda``): #6 against its plain version on the same
+inputs, its state against the plain block's on the same block input, #7
+from #6's state against the plain backward from the same state, fp32
+within 1e-4 * max(1, max |plain|) and bf16 within 2e-2 * max(1, max
+|plain|) (the kernels sum in another order, and in bf16 one rounding that
+goes the other way travels through the later blocks), for the output, dq0,
+dkv and all 16 weight gradients; #6's output the same bits with and
+without a state; the launch and state-allocation counters. This file
+imports neither JAX nor the JAX package, so the card-only tests run where
+those are not installed
 (``pytest tests/test_torch_block_kernel.py -m cuda --noconftest``).
 """
 
@@ -32,7 +37,10 @@ CARD = SMALL + [(8, 50, 50, 384, 3, 1536, 2, False),
                 (8, 147, 50, 256, 2, 1024, 2, True),
                 # Heads of 256 (the attention bodies' scalar instances).
                 (2, 37, 37, 512, 2, 1024, 2, False),
-                (2, 70, 13, 512, 2, 1024, 2, True)]
+                (2, 70, 13, 512, 2, 1024, 2, True),
+                # Heads of 64 (the tensor-core bodies' narrow instances).
+                (2, 50, 50, 128, 2, 256, 2, False),
+                (2, 70, 13, 128, 2, 256, 2, True)]
 
 
 @pytest.fixture
@@ -112,6 +120,64 @@ def test_row_sum_from_ctx_matches_row_sum_from_p(shape):
     torch.testing.assert_close(got[:2], want[:2], **tol)
     for k in BK.W_KEYS:
         torch.testing.assert_close(got[2][k], want[2][k], **tol, msg=k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", SMALL, ids=["cross", "self"])
+def test_plain_backward_from_state_matches_recompute(shape, dtype):
+    """The plain backward from the plain forward's state against the plain
+    backward that recomputes each block from qstack: the same bits (dq0,
+    dkv, the 16 weight gradients). The state holds STATE_KEYS per block,
+    kvh and the LNkv statistics only in cross mode."""
+    q0, kv, w, dout = _inputs(shape, 6, dtype=dtype)
+    cross, h = shape[-1], shape[4]
+    _, qstack, state = BK.fused_block_stack_ref(q0, kv, w, h, "tanh", cross,
+                                                keep_state=True)
+    assert len(state) == shape[6]
+    for st in state:
+        assert tuple(st) == BK.STATE_KEYS
+        for k in ("kvh", "meankv", "rstdkv"):
+            assert (st[k] is not None) == cross, k
+        assert st["a1"].dtype == dtype and st["lse"].dtype == torch.float32
+        assert st["lse"].shape == (shape[0], h, shape[1])
+    got = BK.fused_block_stack_bwd_ref(qstack, kv, w, dout, h, "tanh", cross,
+                                       state=state)
+    want = BK.fused_block_stack_bwd_ref(qstack, kv, w, dout, h, "tanh", cross)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for k in BK.W_KEYS:
+        assert torch.equal(got[2][k], want[2][k]), k
+
+
+def test_state_kept_only_when_a_gradient_is_wanted(monkeypatch):
+    """fused_block_stack asks its forward for the state only with grad mode
+    on and an input that needs a gradient, and its backward (through
+    autograd) gives the plain recomputing backward's bits; 'fwd' never asks
+    for one."""
+    shape = SMALL[0]
+    q0, kv, w, dout = _inputs(shape, 7)
+    kept = []
+    real = BK._stack_forward
+    monkeypatch.setattr(BK, "_stack_forward",
+                        lambda *a: kept.append(a[6:] == (True,)) or real(*a))
+    leaves = [q0.clone().requires_grad_(), kv.clone().requires_grad_()]
+    ws = {k: v.clone().requires_grad_() for k, v in w.items()}
+    with torch.no_grad():
+        BK.fused_block_stack(leaves[0], leaves[1], ws, 1, "tanh")
+    with torch.inference_mode():
+        BK.fused_block_stack(leaves[0], leaves[1], ws, 1, "tanh")
+    BK.fused_block_stack(q0, kv, w, 1, "tanh")  # nothing needs a gradient
+    BK.fused_block_stack_fwd_plain_bwd(leaves[0], leaves[1], ws, 1, "tanh")
+    assert kept == [False] * 4
+    out = BK.fused_block_stack(leaves[0], leaves[1], ws, 1, "tanh")
+    assert kept == [False] * 4 + [True]
+    got = torch.autograd.grad(out, leaves + list(ws.values()), dout)
+    qstack = BK.fused_block_stack_ref(q0, kv, w, 1, "tanh")[1]
+    want_q, want_kv, want_w = BK.fused_block_stack_bwd_ref(
+        qstack, kv, w, dout, 1, "tanh")
+    assert torch.equal(got[0], want_q) and torch.equal(got[1], want_kv)
+    for k, g in zip(ws, got[2:]):
+        assert torch.equal(g, want_w[k]), k
 
 
 @pytest.mark.parametrize("fn", ["fused_block_stack",
@@ -206,26 +272,41 @@ CARD_CASES = ([(s, "tanh", dt) for s in CARD for dt in (FP32, BF16)]
               + [(s, "erf", BF16) for s in CARD[2:]])
 CARD_IDS = [f"{name}-{gelu}-{str(dt)[6:]}" for (s, gelu, dt) in CARD_CASES
             for name in [("odd-cross", "odd-self", "encoder", "serving",
-                          "decoder", "wide-self", "wide-cross")[
-                              CARD.index(s)]]]
+                          "decoder", "wide-self", "wide-cross",
+                          "narrow-self", "narrow-cross")[CARD.index(s)]]]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,gelu,dtype", CARD_CASES, ids=CARD_IDS)
 def test_kernels_match_plain_on_card(cuda, shape, gelu, dtype):
-    """#6 and #7 against the plain versions on the same inputs: the output,
-    qstack, dq0, dkv and the 16 weight gradients."""
+    """#6 against the plain forward on the same inputs (output, qstack), the
+    same bits with a state buffer as without, and its state against the
+    plain block's on the same block input; #7 from #6's qstack and state
+    against the plain backward from the same (dq0, dkv, the 16 weight
+    gradients)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q0, kv, w, dout = _inputs(shape, 2, cuda, dtype)
     cross, h = shape[-1], shape[4]
-    out, qstack = BK._launch_fwd(q0, kv, w, h, gelu, cross)
+    out, qstack, state = BK._launch_fwd(q0, kv, w, h, gelu, cross,
+                                        keep_state=True)
+    bare_out, bare_qstack = BK._launch_fwd(q0, kv, w, h, gelu, cross)
     want_out, want_qstack = BK.fused_block_stack_ref(q0, kv, w, h, gelu,
                                                      cross)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bare_out) and torch.equal(qstack, bare_qstack)
     _assert_close(out, want_out, dtype, "out")
     _assert_close(qstack, want_qstack, dtype, "qstack")
-    got = BK._launch_bwd(want_qstack, kv, w, dout, h, gelu, cross)
-    want = BK.fused_block_stack_bwd_ref(want_qstack, kv, w, dout, h, gelu,
-                                        cross)
+    views = BK.state_views(state, qstack, kv, w, h, cross)
+    for l, st in enumerate(views):
+        want_st = BK._block(qstack[l], kv, {k: v[l] for k, v in w.items()},
+                            h, gelu, cross)[1]
+        for k in BK.STATE_KEYS:
+            assert (st[k] is None) == (want_st[k] is None), k
+            if st[k] is not None:
+                _assert_close(st[k], want_st[k], dtype, f"block {l} {k}")
+    got = BK._launch_bwd(qstack, kv, w, dout, state, h, gelu, cross)
+    want = BK.fused_block_stack_bwd_ref(qstack, kv, w, dout, h, gelu, cross,
+                                        state=views)
     torch.cuda.synchronize()
     _assert_close(got[0], want[0], dtype, "dq0")
     if cross:
@@ -236,18 +317,19 @@ def test_kernels_match_plain_on_card(cuda, shape, gelu, dtype):
 
 @pytest.mark.cuda
 def test_autograd_and_launch_counters_on_card(cuda):
-    """One pass through autograd (the decoder's cross stack, bf16): one #6
-    and one #7 launch, gradients as the plain backward's; 'fwd' launches
-    #6 and no #7."""
-    shape = CARD[-1]
+    """One pass through autograd (a cross stack, bf16): one #6 and one #7
+    launch and one state buffer, gradients as the plain backward's; 'fwd'
+    launches #6 and no #7, and allocates no state."""
+    shape = CARD[6]
     q0, kv, w, dout = _inputs(shape, 3, cuda, torch.bfloat16)
     xs = [t.clone().requires_grad_() for t in (q0, kv)]
     ws = {k: v.clone().requires_grad_() for k, v in w.items()}
     BK.fused_block_stack.launches = BK.fused_block_stack.bwd_launches = 0
+    BK.fused_block_stack.state_allocs = 0
     out = BK.fused_block_stack(xs[0], xs[1], ws, 2, "tanh", cross=True)
     grads = torch.autograd.grad(out, xs + list(ws.values()), dout)
-    assert (BK.fused_block_stack.launches,
-            BK.fused_block_stack.bwd_launches) == (1, 1)
+    assert (BK.fused_block_stack.launches, BK.fused_block_stack.bwd_launches,
+            BK.fused_block_stack.state_allocs) == (1, 1, 1)
     want_q, want_kv, want_w = BK.fused_block_stack_bwd_ref(
         BK.fused_block_stack_ref(q0, kv, w, 2, "tanh", True)[1], kv, w, dout,
         2, "tanh", True)
@@ -258,8 +340,48 @@ def test_autograd_and_launch_counters_on_card(cuda):
     out = BK.fused_block_stack_fwd_plain_bwd(xs[0], xs[1], ws, 2, "tanh",
                                              cross=True)
     torch.autograd.grad(out, xs + list(ws.values()), dout)
+    assert (BK.fused_block_stack.launches, BK.fused_block_stack.bwd_launches,
+            BK.fused_block_stack.state_allocs) == (2, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [CARD[2], CARD[4]], ids=["self", "cross"])
+def test_no_state_without_a_gradient_on_card(cuda, shape):
+    """#6 allocates and writes no state under torch.no_grad() or
+    torch.inference_mode(), on inputs that need no gradient, or with
+    fused_blocks='fwd' (fused_block_stack_fwd_plain_bwd), forward and
+    backward; it allocates one where a gradient is wanted. Counted by the
+    wrapper's state allocations."""
+    q0, kv, w, dout = _inputs(shape, 8, cuda, torch.bfloat16)
+    cross, h = shape[-1], shape[4]
+    xs = [t.clone().requires_grad_() for t in (q0, kv)]
+    ws = {k: v.clone().requires_grad_() for k, v in w.items()}
+    BK.fused_block_stack.state_allocs = BK.fused_block_stack.launches = 0
+    with torch.no_grad():
+        BK.fused_block_stack(xs[0], xs[1], ws, h, "tanh", cross)
+    with torch.inference_mode():
+        BK.fused_block_stack(xs[0], xs[1], ws, h, "tanh", cross)
+    BK.fused_block_stack(q0, kv, w, h, "tanh", cross)
+    out = BK.fused_block_stack_fwd_plain_bwd(xs[0], xs[1], ws, h, "tanh",
+                                             cross)
+    torch.autograd.grad(out, xs[:1 + cross] + list(ws.values()), dout)
     assert (BK.fused_block_stack.launches,
-            BK.fused_block_stack.bwd_launches) == (2, 1)
+            BK.fused_block_stack.state_allocs) == (4, 0)
+    BK.fused_block_stack(xs[0], xs[1], ws, h, "tanh", cross)
+    assert BK.fused_block_stack.state_allocs == 1
+
+
+@pytest.mark.cuda
+def test_backward_without_state_raises_on_card(cuda):
+    """#7 reads #6's state and has no other way: without it, or with a
+    buffer of the wrong size, its wrapper raises rather than recompute."""
+    shape = CARD[0]
+    q0, kv, w, dout = _inputs(shape, 9, cuda, torch.bfloat16)
+    _, qstack, state = BK._launch_fwd(q0, kv, w, 1, "tanh", True,
+                                      keep_state=True)
+    for bad in (None, state[:-256]):
+        with pytest.raises(ValueError, match="keep_state=True"):
+            BK.fused_block_stack_bwd(qstack, kv, w, dout, bad, 1, "tanh")
 
 
 @pytest.mark.cuda
