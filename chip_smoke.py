@@ -8,7 +8,10 @@ source, started together) and holds each kernel, forward and backward,
 against its plain PyTorch version on the card (the attention pairs #1/#3
 and #2/#4 also as training runs them: the forward writing the row
 log-sum-exp, the backward reading it and the output; heads up to 256),
-and the in-step augmentation against the CPU's. Then it drives the port's
+each template of the GEMM body that the block stacks share (every (layout,
+epilogue) pair they launch, at cuts of their products and a ragged shape)
+against the fp32 product with its epilogue in torch, and the in-step
+augmentation against the CPU's. Then it drives the port's
 three paths through their entry
 points, each with the kernels' launch counts set to 0 just before and read
 just after:
@@ -37,7 +40,8 @@ just after:
 Last, it times each kernel at the training and pretraining shapes beside
 its bound, its plain version and the PyTorch call that computes the same
 thing (for the block stacks, which no single call computes, the port's own
-per-block path on the same weights). Any failed
+per-block path on the same weights), and each of the stacks' bf16 products
+alone on their GEMM body beside ``F.linear`` / ``torch.matmul``. Any failed
 check raises, so the run exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; before it come the ``{"kernels": [...]}``
 summary and the card's name and power limit.
@@ -100,11 +104,13 @@ def build_kernels() -> None:
     for src in paths:
         for line in _build.ptxas_report(src).splitlines():
             entry = re.search(r"Compiling entry function '.*?\d+"
-                              r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", line)
+                              r"([a-z][a-z_]*_kernel)(I[^']*)?'", line)
             if entry:
-                dim = f"<{entry.group(2)}>" if entry.group(2) else ""
+                args = re.findall(r"L[bi](\d+)E", entry.group(2) or "")
+                dim = f"<{','.join(args)}>" if args else ""
                 log(f"  {src}: {entry.group(1)}{dim}")
-            elif "registers" in line or "spill" in line or "smem" in line:
+            elif ("registers" in line or "spill" in line or "smem" in line
+                  or "warning" in line.lower()):
                 log(f"  {src}: {line.strip()}")
     _build.load_attention()
     _build.load_attention_bwd()
@@ -614,6 +620,165 @@ def check_block_stack_kernels(worst: dict) -> None:
         f"gradients {max(errs):.3e}")
 
 
+# The stacks' bf16 products, each run by the GEMM body that #6 and #7 share
+# (csrc/block_common.cuh), alone: per block of #6 the five forward products,
+# per block of #7 the five input gradients and the five weight gradients'
+# split partials, at a stack shape (B, Sq, Sk, D, H, F, L, cross).
+def stack_gemms(shape) -> list:
+    b, sq, sk, d, _, f, n, cross = shape
+    m, mk = b * sq, b * (sk if cross else sq)
+    fwd = (("q", "bias", m, d, d), ("kv", "bias", mk, 2 * d, d),
+           ("proj", "bias_res", m, d, d), ("fc1", "bias_gelu", m, f, d),
+           ("fc2", "bias_res", m, d, f))
+    dx = (("fc2", "gelu_grad", m, f, d), ("fc1", "f32", m, d, f),
+          ("proj", "round", m, d, d), ("q", "f32", m, d, d),
+          ("kv", "f32" if cross else "f32_add", mk, d, 2 * d))
+    dw = (("fc2", d, f, m), ("fc1", f, d, m), ("proj", d, d, m),
+          ("q", d, d, m), ("kv", 2 * d, d, mk))
+    return ([dict(kernel="fused_block_stack", name=f"{w} forward",
+                  pair=("mk", "nk", mode), m=rows, n=cols, k=k, per_call=n)
+             for w, mode, rows, cols, k in fwd]
+            + [dict(kernel="fused_block_stack_bwd", name=f"{w} input grad",
+                    pair=("mk", "kn", mode), m=rows, n=cols, k=k, per_call=n)
+               for w, mode, rows, cols, k in dx]
+            + [dict(kernel="fused_block_stack_bwd", name=f"{w} weight grad",
+                    pair=("km", "kn", "partial"), m=o, n=i, k=rows,
+                    per_call=n)
+               for w, o, i, rows in dw])
+
+
+# Each template of the body is held against the fp32 product of the same
+# bf16 operands with its epilogue written in torch (gemm_body_ref), at a
+# cut of each main product (its rows cut to GEMM_CUT_ROWS: M, or K for the
+# weight gradients, whose row splits are then #7's own) and at a ragged
+# shape (no dim a multiple of 64; 3 splits for the partials). fp32 outputs
+# within 1e-3 * max(1, max |ref|) (only the order of the sums differs);
+# bf16 outputs within one bf16 step of the reference rounded the same way,
+# one step per rounding in the output's chain, carried through it
+# (bias_res: the step of round(acc + bias) and of the output; bias_gelu's
+# GELU: 1.2 steps of a1, GELU's largest slope being 1.13, and one of the
+# output), plus the fp32 sums' order carried the same way: 2^-16 *
+# sum_k |a_mk b_kn| (the sums differ by ~2^-24 of it; this shows only
+# where a sum cancels, and a bf16 step no longer covers its fp32 error).
+GEMM_CUT_ROWS = 1024
+GEMM_RAGGED = (200, 24, 40)
+GEMM_FP32_TOL = 1e-3
+GEMM_SUM_ORDER = 2.0 ** -16
+
+
+def gemm_check_shapes(pair) -> list:
+    """(M, N, K, splits or None for #7's own) of the check of one pair."""
+    shapes = []
+    for shape in STACK_SHAPES.values():
+        for g in stack_gemms(shape):
+            if g["pair"] == pair:
+                m, n, k = g["m"], g["n"], g["k"]
+                if pair[2] == "partial":
+                    k = GEMM_CUT_ROWS
+                else:
+                    m = GEMM_CUT_ROWS
+                if (m, n, k, None) not in shapes:
+                    shapes.append((m, n, k, None))
+    return shapes + [GEMM_RAGGED + (3 if pair[2] == "partial" else 1,)]
+
+
+def _gemm_inputs(gen, pair, m: int, n: int, k: int, device=None):
+    """bf16 operands stored in the pair's layouts (activations normal, a
+    weight normal / sqrt(K); both normal for the weight gradients), the
+    bias, residual and GELU input its epilogue reads, and the fp32 outf an
+    f32_add adds into."""
+    device = device or DEVICE
+    a_km, b_kn, mode = pair[0] == "km", pair[1] == "kn", pair[2]
+
+    def r(*sh, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*sh, generator=gen) * scale).to(device, dtype)
+
+    a = r(k, m) if a_km else r(m, k)
+    scale = 1.0 if mode == "partial" else k ** -0.5
+    b = r(k, n, scale=scale) if b_kn else r(n, k, scale=scale)
+    return dict(a=a, b=b,
+                bias=r(n, scale=0.1) if mode.startswith("bias") else None,
+                res=r(m, n) if mode == "bias_res" else None,
+                aux=r(m, n) if mode == "gelu_grad" else None,
+                outf=(r(m, n, dtype=torch.float32) if mode == "f32_add"
+                      else None))
+
+
+def _bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 (8 significant bits) at each |x|."""
+    _, e = torch.frexp(x.float().abs())
+    step = torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
+    return torch.where(x == 0, torch.full_like(step, 2.0 ** -133), step)
+
+
+def check_gemm_case(pair, m: int, n: int, k: int, splits, gen) -> float:
+    """One product of the body on the card against ``gemm_body_ref`` on the
+    same operands (the rules above); raises on a disagreement. Returns the
+    largest error as a share of its limit."""
+    from mae_clip_torch.ops import block_kernel as BK
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a_km, b_kn, mode = pair[0] == "km", pair[1] == "kn", pair[2]
+    if splits is None:
+        splits = BK.gemm_dw_splits(m, n, k) if mode == "partial" else 1
+    x = _gemm_inputs(gen, pair, m, n, k)
+    args = (x["a"], x["b"], mode, a_km, b_kn, x["bias"], x["res"], x["aux"],
+            x["outf"], "tanh", splits)
+    got = BK.gemm_body(*args)
+    want = BK.gemm_body_ref(*args)
+    torch.cuda.synchronize()
+    label = f"gemm body {pair}: M {m} N {n} K {k}, {splits} split(s)"
+    am = x["a"].float().t() if a_km else x["a"].float()   # (M, K)
+    bm = x["b"].float() if b_kn else x["b"].float().t()   # (K, N)
+    order = 1.2 * GEMM_SUM_ORDER * (am.abs() @ bm.abs())
+    acc = None
+    if mode in ("bias_res", "bias_gelu"):
+        acc = (am @ bm + x["bias"].float()).to(torch.bfloat16)
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name].float()
+        w = w.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label} {name}: non-finite output")
+        err = (g - w).abs()
+        if name == "outf":
+            limit = torch.full_like(w, GEMM_FP32_TOL * max(1.0, float(
+                w.abs().max())))
+        else:
+            limit = _bf16_step(torch.maximum(g.abs(), w.abs())) + order
+            if mode == "bias_res":
+                limit = limit + _bf16_step(acc)
+            elif mode == "bias_gelu" and name == "out2":
+                limit = limit + 1.2 * _bf16_step(acc)
+        bad = err > limit
+        if bool(bad.any()):
+            i = int(torch.argmax((err / limit).flatten()))
+            raise AssertionError(
+                f"{label} {name}: {int(bad.sum())} of {bad.numel()} outside "
+                f"their limit; worst {float(err.flatten()[i]):.3e} against "
+                f"{float(limit.flatten()[i]):.3e} (got "
+                f"{float(g.flatten()[i]):.6g}, reference "
+                f"{float(w.flatten()[i]):.6g})")
+        worst = max(worst, float((err / limit).max()))
+    return worst
+
+
+def check_gemm_bodies(worst: dict) -> None:
+    """Every template of the GEMM body (each (layout, epilogue) pair the
+    stacks launch) against its plain version, at the cuts of the main
+    products and the ragged shape."""
+    from mae_clip_torch.ops import block_kernel as BK
+
+    gen = torch.Generator().manual_seed(14)
+    worst["gemm_body"] = 0.0
+    for pair in BK.GEMM_PAIRS:
+        shapes = gemm_check_shapes(pair)
+        ratio = max(check_gemm_case(pair, *shape, gen) for shape in shapes)
+        worst["gemm_body"] = max(worst["gemm_body"], ratio)
+        log(f"  gemm body ({','.join(pair)}): {[s[:3] for s in shapes]}: "
+            f"largest error {ratio:.3f} of its limit")
+
+
 def check_augment_on_card() -> float:
     """The in-step crop + resample + flip and the eval resize on the card
     against the CPU, given the same boxes and flips (drawn on the CPU), at
@@ -1057,10 +1222,11 @@ def _kernel_group(name: str) -> str:
     bodies by template (operand layouts, epilogue), the weight-gradient
     reduce, the column sums, LayerNorm forward and backward, attention
     forward and backward."""
-    m = re.search(r"gemm_mma_kernel<(\w+), (\w+), (\d+)>", name)
+    m = re.search(r"gemm_wgmma_kernel<(\w+),\s*(\w+),\s*(\d+)>", name)
     if m:
-        return (f"GEMM mma<{'km' if m[1] == 'true' else 'mk'},"
-                f"{'kn' if m[2] == 'true' else 'nk'},{EPILOGUES[int(m[3])]}>")
+        km, kn = m[1] in ("true", "1"), m[2] in ("true", "1")
+        return (f"GEMM wgmma<{'km' if km else 'mk'},{'kn' if kn else 'nk'},"
+                f"{EPILOGUES[int(m[3])]}>")
     m = re.search(r"reduce_rows_kernel<[^<>]*?(\d+)>", name)
     if m:
         return "weight-gradient reduce" if m[1] == "0" else "column sums"
@@ -1074,11 +1240,16 @@ def _kernel_group(name: str) -> str:
                        ("at::native", "PyTorch (the wrapper's own)")):
         if key in name:
             return group
+    if "gemm" in name.lower():  # a GEMM body this map does not know
+        return "GEMM unknown body"
     return name[:60]
 
 
 # Groups that are forward work: none may appear in #7's breakdown.
-FORWARD_GROUPS = ("LayerNorm forward", "attention forward", "GEMM mma<mk,nk")
+FORWARD_GROUPS = ("LayerNorm forward", "attention forward",
+                  "GEMM wgmma<mk,nk")
+# Groups of bf16 products that did not run the wgmma body.
+OFF_BODY_GROUPS = ("GEMM scalar", "GEMM unknown body")
 
 
 def _launch_breakdown(fn, traces: int = 3) -> dict:
@@ -1254,8 +1425,87 @@ def time_block_stacks() -> dict:
             "launch_breakdown"] if g.startswith(FORWARD_GROUPS)]
         if fwd_work:
             raise AssertionError(f"#7 launched forward work: {fwd_work}")
+        for name, per_block in (("fused_block_stack", 5),
+                                ("fused_block_stack_bwd", 10)):
+            parts = out[name][which]["launch_breakdown"]
+            off = [g for g in parts if g.startswith(OFF_BODY_GROUPS)]
+            if off:
+                raise AssertionError(f"{name} [{which}]: bf16 products off "
+                                     f"the wgmma body: {off}")
+            body = sum(v["launches"] for g, v in parts.items()
+                       if g.startswith("GEMM wgmma"))
+            log(f"  {name} [{which}]: {body} launches of the wgmma body in "
+                f"the trace, of {per_block * n} products a call")
         del state, views
     log(f"  SM clock, max SM clock after: {clock_line()}")
+    return out
+
+
+def time_gemm_shapes() -> dict:
+    """Each bf16 product of #6 and #7 at both stack shapes (``stack_gemms``),
+    alone: the GEMM body (``BK._launch_gemm``) against one PyTorch call on the same operands
+    (F.linear with the bias for a forward product, torch.matmul for an
+    input gradient, and for a weight gradient over all rows at once), a
+    yardstick the port never calls; beside the bound (the operands read
+    once, what the epilogue reads and writes once, or 2 M N K over the bf16
+    rate). The weight gradients run #7's row splits. ``_device_ms`` each."""
+    import torch.nn.functional as F
+
+    from mae_clip_torch.ops import block_kernel as BK
+
+    gen = torch.Generator().manual_seed(13)
+    out = {}
+    for which, shape in STACK_SHAPES.items():
+        rows = []
+        for g in stack_gemms(shape):
+            pair, m, n, k = g["pair"], g["m"], g["n"], g["k"]
+            a_km, b_kn, mode = pair[0] == "km", pair[1] == "kn", pair[2]
+            splits = BK.gemm_dw_splits(m, n, k) if mode == "partial" else 1
+            x = _gemm_inputs(gen, pair, m, n, k)
+            a, b = x["a"], x["b"]
+            outs = {name: torch.empty(
+                (splits, m, n) if mode == "partial" else (m, n),
+                dtype=torch.float32 if name == "outf" else a.dtype,
+                device=DEVICE) for name in BK.GEMM_OUTPUTS[mode]}
+            if mode == "f32_add":
+                outs["outf"] = x["outf"]
+
+            def body():
+                BK._launch_gemm(a, b, mode, a_km, b_kn, x["bias"], x["res"],
+                                x["aux"], outs.get("out"), outs.get("out2"),
+                                outs.get("outf"), "tanh", splits)
+
+            if pair[1] == "nk":
+                def library():
+                    return F.linear(a, b, x["bias"])
+            elif a_km:
+                def library():
+                    return torch.matmul(a.t(), b)
+            else:
+                def library():
+                    return torch.matmul(a, b)
+            moved = sum(t.numel() * t.element_size() for t in
+                        [a, b] + list(outs.values())
+                        + [x[key] for key in ("bias", "res", "aux", "outf")
+                           if x[key] is not None])
+            bound, by = _bound_ms(moved, 2 * m * n * k, torch.bfloat16)
+            r = dict(g, pair=",".join(pair), splits=splits,
+                     ms=_device_ms(body), library_ms=_device_ms(library),
+                     bound_ms=bound, bound_by=by)
+            r["tflops"] = 2 * m * n * k / r["ms"] / 1e9
+            rows.append(r)
+            log(f"  gemm [{which}] {g['name']} ({r['pair']}) M {m} N {n} K "
+                f"{k}{f', {splits} splits' if splits > 1 else ''}: device ms "
+                f"body {r['ms']:.4f} ({r['tflops']:.0f} TFLOP/s), library "
+                f"{r['library_ms']:.4f}, bound {bound:.4f} ({by}); "
+                f"{g['per_call']} a call")
+        total = sum(r["ms"] * r["per_call"] for r in rows)
+        log(f"  gemm [{which}]: the body's products of one call of #6 "
+            f"{sum(r['ms'] * r['per_call'] for r in rows if r['kernel'] == 'fused_block_stack'):.4f} "
+            f"ms and of #7 "
+            f"{sum(r['ms'] * r['per_call'] for r in rows if r['kernel'] == 'fused_block_stack_bwd'):.4f}"
+            f" ms (both {total:.4f})")
+        out[which] = rows
     return out
 
 
@@ -2087,10 +2337,12 @@ def main() -> int:
     log("phase 1: build")
     build_kernels()
     log("phase 2: kernels vs plain versions (forward, backward, masked "
-        "patch embedding, block stacks), augmentation card vs CPU")
+        "patch embedding, the block stacks' GEMM body per template, block "
+        "stacks), augmentation card vs CPU")
     errs = check_kernels()
     check_backward_kernels(errs)
     check_patch_embed_kernel(errs)
+    check_gemm_bodies(errs)
     check_block_stack_kernels(errs)
     check_augment_on_card()
 
@@ -2134,12 +2386,14 @@ def main() -> int:
         f"{train['peak_memory_gb']:.3f}); lowest gradient cosine card vs CPU "
         f"{fused['against_cpu']['min_grad_cosine']:.5f} (limit 0.99)")
 
-    log("phase 5: kernel times (serving, training, pretraining shapes, then "
+    log("phase 5: kernel times (serving, training, pretraining shapes, the "
+        "block stacks' GEMM products, then "
         "the block stacks)")
     time_serving_kernels()
     times = time_training_kernels()
     pre_times = time_pretrain_kernels()
     wide_times = time_wide_heads()
+    gemm_times = time_gemm_shapes()
     stack_times = time_block_stacks()
     log(f"end to end: serving {json.dumps(e2e)}")
     log(f"end to end: training {json.dumps(train)}")
@@ -2164,6 +2418,10 @@ def main() -> int:
                 if k in stack_times[name]["decoder"]}
             extra["library"] = t["library"]
             extra["launch_breakdown"] = t["launch_breakdown"]
+            extra["gemm_body_max_err_of_limit"] = errs["gemm_body"]
+            extra["gemm_shapes"] = {
+                which: [r for r in rows if r["kernel"] == name]
+                for which, rows in gemm_times.items()}
             if "with_state" in t:
                 extra["with_state"] = t["with_state"]
         else:

@@ -94,8 +94,8 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-// ---- Asynchronous copies and ldmatrix (the pipelined attention bodies and
-// the block stacks' GEMMs) ----
+// ---- Asynchronous copies and ldmatrix (the pipelined attention bodies;
+// cp.async also the block stacks' GEMM epilogues) ----
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {

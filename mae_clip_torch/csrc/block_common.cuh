@@ -19,16 +19,16 @@
 //                              rows in fixed-order splits (no atomics)
 // The epilogue applies the TPU kernel's roundings (see Epi below).
 //
-// Bodies. bf16 with widths that are multiples of 8 and 16-byte aligned rows
-// takes gemm_mma_kernel: 128 x 128 output tiles, 8 warps of 64 x 32, K in
-// steps of 32 staged by cp.async into a four-stage shared-memory ring (rows
-// padded by 8 elements: no bank conflicts), fragments read with ldmatrix
-// (.trans for the transposed layouts), mma.sync.m16n8k16 bf16 -> fp32.
-// Everything else (fp32, odd widths) takes gemm_scalar_kernel: 64 x 64
-// tiles, 256 threads of 4 x 4 outputs, fp32 FMAs over 16-deep chunks.
+// Bodies. bf16 with widths that are multiples of 8 and 16-byte aligned bases
+// takes gemm_wgmma_kernel (TMA loads into a swizzled shared-memory ring, a
+// producer warpgroup, two consumer warpgroups on wgmma, a persistent grid;
+// see its header below and gemm_wgmma_ok). Everything else (fp32, odd widths) takes
+// gemm_scalar_kernel: 64 x 64 tiles, 256 threads of 4 x 4 outputs, fp32
+// FMAs over 16-deep chunks.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums: types only, no libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
@@ -131,7 +131,7 @@ struct Gemm {
   long long lda, ldb;
   int M, N, K;
   bool a_km, b_kn;  // layouts, see the header
-  int k_chunk;      // K extent of one split (blockIdx.z), a multiple of 32
+  int k_chunk;      // K extent of one split, a multiple of kBK (64)
   int mode, gelu;
   const T* bias;    // (N)
   const T* res;     // (M, N)
@@ -246,7 +246,54 @@ __global__ void __launch_bounds__(256) gemm_scalar_kernel(Gemm<T> p) {
   }
 }
 
-// ---- tensor-core body ----
+// ---- The tensor-core body: TMA loads, wgmma, a producer warpgroup ----
+//
+// gemm_wgmma_kernel<AKM, BKN, MODE> computes 128 x 128 output tiles with
+// 384 threads: warpgroup 0 is the producer, and one of its threads keeps
+// TMA loads in flight; warpgroups 1 and 2 are the consumers, each 64 rows
+// of the tile. K goes in steps of 64 (one 128-byte swizzle row of bf16)
+// through a ring of kStages stages of A (128 x 64) and B (128 x 64) in
+// shared memory. Each stage has a full barrier (the producer's arrival and
+// the TMA bytes) and an empty one (one arrival per consumer warpgroup once
+// its wgmma on the stage has completed). TMA writes each tile with the
+// 128-byte swizzle; wgmma.mma_async m64n128k16 (bf16 -> fp32) reads both
+// operands from shared memory through descriptors: the K-major operands
+// (A mk, B nk) as 8-row groups of 1024 bytes, the MN-major ones (A km,
+// B kn) through the transpose bits, as 64-element atoms of 64 k rows (8 KB)
+// and 8-row groups of 1024 bytes, so no layout is copied first. setmaxnreg
+// moves registers from the producer to the consumers. The accumulator's
+// fragment layout within each warp's 16 rows is mma.sync's C layout; the
+// epilogue (epilogue_tile) goes through shared memory.
+//
+// The grid is persistent: one block an SM walks the tiles (n fastest, then
+// m, then the split), and the producer loads the next tile's stages while
+// the consumers run this one's epilogue; an epilogue's inputs (bias, res,
+// aux, the fp32 sum added to) are issued by cp.async before the tile's
+// products, and land while they run. Tiles of 128 x 256 were tried
+// (PERF.md): no faster with the plain epilogues, slower with the
+// GELU ones; so one width, and the persistent grid for the tail.
+//
+// Bound on an H100 SXM. A 128 x 128 x 64 stage is 2.1 MFLOP against 32 KB
+// of loads (64 FLOP a byte from L2), and the tensor rate needs ~7.5
+// TFLOP/s an SM. From HBM the stacks' products are near or under the ridge
+// (295 FLOP a byte): at the encoder a D x D product moves ~20 MB for 3.8
+// GFLOP (bytes-bound, 6 us), fc1 / fc2 ~50 MB for 15 GFLOP. So the design
+// keeps loads in flight across tile boundaries (the persistent producer),
+// reads each activation tile once per 128-row band of concurrently running
+// blocks (n fastest), spends no registers or instructions on the copies,
+// and moves each epilogue's outputs and inputs in 16-byte chunks through
+// shared memory. What bounds it now is the epilogue: the consumers run it
+// while no product runs, on 8 warps an SM (the GELU ones most of all). A
+// second block an SM does not fit (384 threads x 2 leave 80 registers a
+// thread, under what the products need); warpgroups that take turns
+// (one's products during the other's epilogue) need their main loops
+// ordered, since a warpgroup a whole ring ahead cannot tell the stage's
+// phases apart by parity.
+//
+// Ragged M, N and K: TMA fills loads outside the tensor with zeros, the
+// stores are masked per row and column, and a split's K range
+// (p.k_chunk) is a multiple of 64, so no stage crosses into the next
+// split's rows.
 
 // Raises a kernel's dynamic shared-memory limit when it needs over 48 KB.
 template <typename K>
@@ -256,246 +303,543 @@ int set_smem(K* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kStages = 4;  // cp.async ring depth: 3 K steps in flight
+constexpr int kBM = 128;  // rows of a tile: two consumer warpgroups of 64
+constexpr int kBN = 128;  // columns of a tile
+constexpr int kBK = 64;   // K per stage
+constexpr int kGemmThreads = 384;
+constexpr int kStageBytes = (kBM + kBN) * kBK * 2;
+constexpr int kStages = 4;       // 128 KB, beside the epilogue's 68 KB
+constexpr int kAtom = 64 * 128;  // one MN-major TMA box: 64 k rows of 128 B
+// Registers a thread: 168 at launch (384 threads, one block an SM); the
+// producer warpgroup gives 128 a thread to the consumers (128 x 128 =
+// 256 x 64).
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+// Each consumer warpgroup's epilogue tiles: two of 64 rows of 128 bf16, or
+// one of fp32 in the same bytes, each row padded by 8 elements, which keeps
+// the fragments' writes free of bank conflicts.
+constexpr int kEpiBytes = 2 * 64 * (128 + 8) * 2;
+// The ring, its 2 barriers a stage (in 128 bytes), the two epilogue tiles,
+// and 1 KB to align the ring to 1024.
+constexpr size_t kGemmSmem =
+    (size_t)kStages * kStageBytes + 128 + 2 * kEpiBytes + 1024;
 
 __device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
-__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+
+// ---- The epilogue, through shared memory ----
+//
+// The accumulators of a warpgroup lie in wgmma's fragments: a thread holds
+// 2 columns of a row at a time, a warp 8 rows at once. Stored as they lie,
+// a warp's store writes 8 pieces of 16 bytes (32 of fp32) 8 rows apart,
+// and the epilogues were bound by the count of such stores, not by bytes
+// (the same time for fp32 and bf16 outputs of one shape; twice the time
+// for bias + GELU, which writes a1 and a2). So each consumer warpgroup puts
+// its 64 x 128 slice of an output into a padded tile in shared memory and
+// then writes the tile row by row in 16-byte chunks, 32 threads covering
+// whole 128-byte lines; an input of the epilogue (res, aux, the fp32 sum
+// added to) comes in the same way.
+
+__device__ __forceinline__ void wg_sync(int c) {  // consumer warpgroup c
+  asm volatile("bar.sync %0, 128;\n" ::"r"(c + 1) : "memory");
 }
 
-// The epilogue of the tensor-core body, for columns n and n + 1 of row m
-// (n even, N a multiple of 8), with the mode fixed at compile time: the same
-// arithmetic as epilogue(), stored two columns at a time. (With the mode
-// picked per element at run time, as the scalar body does, the block
-// stacks ran about twice as long on the card.)
-template <int MODE>
-__device__ __forceinline__ void epilogue2(const Gemm<__nv_bfloat16>& p, int m,
-                                          int n, float v0, float v1) {
-  const long long i = (long long)m * p.N + n;
-  if (MODE == kEpiBias) {
-    const float2 b = ld2(p.bias + n);
-    st2(p.out + i, v0 + b.x, v1 + b.y);
-  } else if (MODE == kEpiBiasRes) {
-    const float2 b = ld2(p.bias + n), r = ld2(p.res + i);
-    st2(p.out + i, r.x + rnd<__nv_bfloat16>(v0 + b.x),
-        r.y + rnd<__nv_bfloat16>(v1 + b.y));
-  } else if (MODE == kEpiBiasGelu) {
-    const float2 b = ld2(p.bias + n);
-    const float a0 = rnd<__nv_bfloat16>(v0 + b.x);
-    const float a1 = rnd<__nv_bfloat16>(v1 + b.y);
-    if (p.out) st2(p.out + i, a0, a1);
-    st2(p.out2 + i, gelu_fwd(a0, p.gelu), gelu_fwd(a1, p.gelu));
-  } else if (MODE == kEpiGeluGrad) {
-    const float2 a = ld2(p.aux + i);
-    const float g0 = v0 * gelu_grad(a.x, p.gelu);
-    const float g1 = v1 * gelu_grad(a.y, p.gelu);
-    *reinterpret_cast<float2*>(p.outf + i) = make_float2(g0, g1);
-    st2(p.out + i, g0, g1);
-  } else if (MODE == kEpiF32) {
-    *reinterpret_cast<float2*>(p.outf + i) = make_float2(v0, v1);
-  } else if (MODE == kEpiF32Add) {
-    float2* o = reinterpret_cast<float2*>(p.outf + i);
-    const float2 x = *o;
-    *o = make_float2(x.x + v0, x.y + v1);
-  } else if (MODE == kEpiRound) {
-    st2(p.out + i, v0, v1);
-  } else {  // kEpiPartial
-    *reinterpret_cast<float2*>(p.outf + (long long)blockIdx.z * p.M * p.N +
-                               i) = make_float2(v0, v1);
+template <typename U>
+__host__ __device__ constexpr int tile_stride() {  // bytes a row of a tile of U
+  return (128 + 8) * (int)sizeof(U);
+}
+
+// The (64 x 128) tile at rows m0.., columns n0.. of the (M, N) matrix g,
+// from the shared tile t to global memory (LOAD: the other way, by
+// cp.async, which the caller waits for), in 16-byte chunks; rows and
+// columns outside the matrix are skipped (N is a multiple of 8).
+template <typename U, bool LOAD>
+__device__ __forceinline__ void tile_copy(U* g, uint8_t* t, int m0, int n0,
+                                          int M, int N, int tid) {
+  constexpr int kChunks = 128 * (int)sizeof(U) / 16;  // chunks a row
+  constexpr int kPer = 16 / (int)sizeof(U);           // elements a chunk
+#pragma unroll
+  for (int k = 0; k < 64 * kChunks / 128; ++k) {
+    const int ch = tid + 128 * k, r = ch / kChunks, cc = ch % kChunks;
+    const int m = m0 + r, n = n0 + cc * kPer;
+    uint8_t* s = t + r * tile_stride<U>() + cc * 16;
+    if (LOAD) {
+      cp_async16(s, m < M && n < N ? g + (long long)m * N + n : g,
+                 m < M && n < N);
+    } else if (m < M && n < N) {
+      *reinterpret_cast<uint4*>(g + (long long)m * N + n) =
+          *reinterpret_cast<const uint4*>(s);
+    }
   }
+}
+
+// The fragment's pair (columns 8 j + 2 q, +1 of local row r) in a tile.
+template <typename U>
+__device__ __forceinline__ uint8_t* at(uint8_t* t, int r, int j, int q) {
+  return t + r * tile_stride<U>() + (8 * j + 2 * q) * (int)sizeof(U);
+}
+__device__ __forceinline__ void put_bf16(uint8_t* t, int r, int j, int q,
+                                         float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(at<__nv_bfloat16>(t, r, j, q)) =
+      __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ float2 get_bf16(uint8_t* t, int r, int j, int q) {
+  return __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(at<__nv_bfloat16>(t, r, j, q)));
+}
+__device__ __forceinline__ void put_f32(uint8_t* t, int r, int j, int q,
+                                        float v0, float v1) {
+  *reinterpret_cast<float2*>(at<float>(t, r, j, q)) = make_float2(v0, v1);
+}
+__device__ __forceinline__ float2 get_f32(uint8_t* t, int r, int j, int q) {
+  return *reinterpret_cast<const float2*>(at<float>(t, r, j, q));
+}
+
+// What the epilogue of consumer warpgroup c reads for its rows m0 ..
+// m0 + 63, columns n0 .. n0 + 127, issued before the tile's products so
+// that it lands while they run: res or aux into the second bf16 tile, the
+// fp32 sum fp32 add adds to into the tile, by cp.async; and the bias pairs
+// of the thread's columns into b. The previous tile's epilogue must be
+// done with the tiles (wg_sync first).
+template <int MODE>
+__device__ __forceinline__ void epilogue_inputs(const Gemm<__nv_bfloat16>& p,
+                                                float2 (&b)[16], uint8_t* t,
+                                                int m0, int n0, int tid) {
+  typedef __nv_bfloat16 T;
+  if (MODE == kEpiBiasRes || MODE == kEpiGeluGrad) {
+    tile_copy<T, true>(const_cast<T*>(MODE == kEpiBiasRes ? p.res : p.aux),
+                       t + 64 * tile_stride<T>(), m0, n0, p.M, p.N, tid);
+  } else if (MODE == kEpiF32Add) {
+    tile_copy<float, true>(p.outf, t, m0, n0, p.M, p.N, tid);
+  }
+  cp_async_commit();
+  if (MODE == kEpiBias || MODE == kEpiBiasRes || MODE == kEpiBiasGelu) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int n = n0 + 8 * j + 2 * (tid % 4);
+      b[j] = n < p.N ? ld2(p.bias + n) : make_float2(0.f, 0.f);
+    }
+  }
+}
+
+// The epilogue of consumer warpgroup c (rows m0 .. m0 + 63, columns
+// n0 .. n0 + 127 of split z) with the mode fixed at compile time, from its
+// accumulators acc[4 j + 2 r + e] (local row 16 warp + g + 8 r, column
+// 8 j + 2 q + e) and epilogue_inputs' b and tiles: the same arithmetic as
+// epilogue(). (With the mode picked per element at run time, as the scalar
+// body does, the block stacks ran about twice as long on the card.) t is
+// the warpgroup's epilogue tile.
+template <int MODE>
+__device__ __forceinline__ void epilogue_tile(const Gemm<__nv_bfloat16>& p,
+                                              float (&acc)[64],
+                                              const float2 (&b)[16],
+                                              uint8_t* t, int m0, int n0,
+                                              int z, int c, int tid) {
+  typedef __nv_bfloat16 T;
+  const int warp = tid / 32, g = (tid % 32) / 4, q = tid % 4;
+  const int M = p.M, N = p.N;
+  uint8_t* const t2 = t + 64 * tile_stride<T>();  // a second bf16 tile
+  cp_async_wait<0>();  // this thread's input chunks
+  wg_sync(c);          // everyone's
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int r2 = 0; r2 < 2; ++r2) {
+      const int r = 16 * warp + g + 8 * r2;
+      const float v0 = acc[4 * j + 2 * r2], v1 = acc[4 * j + 2 * r2 + 1];
+      if (MODE == kEpiBias) {
+        put_bf16(t, r, j, q, v0 + b[j].x, v1 + b[j].y);
+      } else if (MODE == kEpiBiasRes) {
+        const float2 x = get_bf16(t2, r, j, q);
+        put_bf16(t, r, j, q, x.x + rnd<T>(v0 + b[j].x),
+                 x.y + rnd<T>(v1 + b[j].y));
+      } else if (MODE == kEpiBiasGelu) {
+        const float a0 = rnd<T>(v0 + b[j].x), a1 = rnd<T>(v1 + b[j].y);
+        put_bf16(t, r, j, q, a0, a1);
+        put_bf16(t2, r, j, q, gelu_fwd(a0, p.gelu), gelu_fwd(a1, p.gelu));
+      } else if (MODE == kEpiGeluGrad) {  // written below: t overlaps t2
+        const float2 x = get_bf16(t2, r, j, q);
+        acc[4 * j + 2 * r2] = v0 * gelu_grad(x.x, p.gelu);
+        acc[4 * j + 2 * r2 + 1] = v1 * gelu_grad(x.y, p.gelu);
+      } else if (MODE == kEpiF32Add) {
+        const float2 x = get_f32(t, r, j, q);
+        put_f32(t, r, j, q, x.x + v0, x.y + v1);
+      } else if (MODE == kEpiRound) {
+        put_bf16(t, r, j, q, v0, v1);
+      } else {  // kEpiF32, kEpiPartial
+        put_f32(t, r, j, q, v0, v1);
+      }
+    }
+  wg_sync(c);
+  if (MODE == kEpiGeluGrad) {  // the fp32 gradient, then its rounded copy
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2)
+        put_f32(t, 16 * warp + g + 8 * r2, j, q, acc[4 * j + 2 * r2],
+                acc[4 * j + 2 * r2 + 1]);
+    wg_sync(c);
+  }
+  if (MODE == kEpiBias || MODE == kEpiBiasRes || MODE == kEpiRound) {
+    tile_copy<T, false>(p.out, t, m0, n0, M, N, tid);
+  } else if (MODE == kEpiBiasGelu) {
+    if (p.out) tile_copy<T, false>(p.out, t, m0, n0, M, N, tid);
+    tile_copy<T, false>(p.out2, t2, m0, n0, M, N, tid);
+  } else if (MODE == kEpiPartial) {
+    tile_copy<float, false>(p.outf + (long long)z * M * N, t, m0, n0, M, N,
+                            tid);
+  } else {  // kEpiGeluGrad, kEpiF32, kEpiF32Add
+    tile_copy<float, false>(p.outf, t, m0, n0, M, N, tid);
+  }
+  if (MODE == kEpiGeluGrad) {
+    wg_sync(c);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2)
+        put_bf16(t, 16 * warp + g + 8 * r2, j, q, acc[4 * j + 2 * r2],
+                 acc[4 * j + 2 * r2 + 1]);
+    wg_sync(c);
+    tile_copy<T, false>(p.out, t, m0, n0, M, N, tid);
+  }
+}
+
+// ---- PTX: barriers in shared memory, TMA, wgmma ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// The producer's arrival, and the bytes the stage's loads will bring.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Waits until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+// One box of a 2-D tensor map into shared memory at dst; c0 is the inner
+// (contiguous) coordinate. Completion counts its bytes on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed wgmma groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous wgmma that writes them.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A shared-memory matrix descriptor with the 128-byte swizzle: the start
+// address, the leading and the stride byte offsets (16-byte units). K-major
+// operands: stride = the next 8 rows (1024 B), leading unused (1). MN-major:
+// leading = the next 64 elements of M or N (the next TMA box), stride = the
+// next 8 k rows (1024 B).
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lead,
+                                               uint32_t stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lead >> 4) << 16 |
+         (uint64_t)(stride >> 4) << 32 | 1ull << 62;
+}
+
+// d (64 x 128, fp32) += A (64 x 16) B (16 x 128), both bf16 in shared
+// memory; TA / TB: A / B MN-major (their transpose bits).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma128(float (&d)[64], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// Tile t of the persistent walk: (n tile, m tile, split), n fastest, and the
+// split's number of K steps.
+struct TileAt {
+  int m0, n0, z, kbeg, nk;
+};
+__device__ __forceinline__ TileAt tile_at(const Gemm<__nv_bfloat16>& p,
+                                          int t, int tiles_m, int tiles_n) {
+  TileAt a;
+  a.n0 = (t % tiles_n) * kBN;
+  t /= tiles_n;
+  a.m0 = (t % tiles_m) * kBM;
+  a.z = t / tiles_m;
+  a.kbeg = a.z * p.k_chunk;
+  const int kend = min(p.K, a.kbeg + p.k_chunk);
+  a.nk = kend > a.kbeg ? (kend - a.kbeg + kBK - 1) / kBK : 0;
+  return a;
 }
 
 template <bool AKM, bool BKN, int MODE>
-__global__ void __launch_bounds__(256)
-    gemm_mma_kernel(Gemm<__nv_bfloat16> p) {
-  // Shared tiles in the operands' global layouts: A (kBM, kBK+8) for mk or
-  // (kBK, kBM+8) for km; B (kBN, kBK+8) for nk or (kBK, kBN+8) for kn.
-  constexpr int kLdA = AKM ? kBM + 8 : kBK + 8;
-  constexpr int kLdB = BKN ? kBN + 8 : kBK + 8;
-  constexpr int kASize = AKM ? kBK * kLdA : kBM * kLdA;
-  constexpr int kBSize = BKN ? kBK * kLdB : kBN * kLdB;
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];  // kStages stages
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+                      const __grid_constant__ CUtensorMap tma_b,
+                      Gemm<__nv_bfloat16> p, int tiles_m, int tiles_n,
+                      int tiles) {
+  constexpr uint32_t kABytes = kBM * kBK * 2;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = ring + kStages * kStageBytes;
+  uint8_t* const epi = smem_raw + (bars + 128 - smem_u32(smem_raw));
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;  // warp's 64 x 32
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const int kbeg = blockIdx.z * p.k_chunk;
-  const int kend = min(p.K, kbeg + p.k_chunk);
-  const int nk = kend > kbeg ? (kend - kbeg + kBK - 1) / kBK : 0;
-
-  auto load_stage = [&](int stage, int k0) {
-    __nv_bfloat16* as = smem + stage * (kASize + kBSize);
-    __nv_bfloat16* bs = as + kASize;
-    // 512 chunks of 8 elements per operand tile: two per thread.
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int ch = tid + it * 256;
-      if (AKM) {  // rows k, 16 chunks of m
-        const int kk = ch / (kBM / 8), mm = (ch % (kBM / 8)) * 8;
-        const int k = k0 + kk, m = m0 + mm;
-        const bool ok = k < kend && m < p.M;
-        cp_async16(as + kk * kLdA + mm, ok ? p.a + k * p.lda + m : p.a, ok);
-      } else {  // rows m, 4 chunks of k
-        const int mm = ch / (kBK / 8), kk = (ch % (kBK / 8)) * 8;
-        const int m = m0 + mm, k = k0 + kk;
-        const bool ok = m < p.M && k < kend;
-        cp_async16(as + mm * kLdA + kk, ok ? p.a + m * p.lda + k : p.a, ok);
-      }
-      if (BKN) {  // rows k, 16 chunks of n
-        const int kk = ch / (kBN / 8), nn = (ch % (kBN / 8)) * 8;
-        const int k = k0 + kk, n = n0 + nn;
-        const bool ok = k < kend && n < p.N;
-        cp_async16(bs + kk * kLdB + nn, ok ? p.b + k * p.ldb + n : p.b, ok);
-      } else {  // rows n, 4 chunks of k
-        const int nn = ch / (kBK / 8), kk = (ch % (kBK / 8)) * 8;
-        const int n = n0 + nn, k = k0 + kk;
-        const bool ok = n < p.N && k < kend;
-        cp_async16(bs + nn * kLdB + kk, ok ? p.b + n * p.ldb + k : p.b, ok);
+  if (threadIdx.x < 128) {  // the producer warpgroup
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x != 0) return;
+    int it = 0;  // K steps issued so far, over every tile
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const TileAt a = tile_at(p, t, tiles_m, tiles_n);
+      for (int kt = 0; kt < a.nk; ++kt, ++it) {
+        const int s = it % kStages;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), kStageBytes);
+        const uint32_t sa = ring + s * kStageBytes, sb = sa + kABytes;
+        const int k0 = a.kbeg + kt * kBK;
+        if (AKM) {  // two boxes of (64 k, 64 m)
+          tma_load(sa, &tma_a, full(s), a.m0, k0);
+          tma_load(sa + kAtom, &tma_a, full(s), a.m0 + 64, k0);
+        } else {  // one box of (128 m, 64 k)
+          tma_load(sa, &tma_a, full(s), k0, a.m0);
+        }
+        if (BKN) {  // two boxes of (64 k, 64 n)
+          tma_load(sb, &tma_b, full(s), a.n0, k0);
+          tma_load(sb + kAtom, &tma_b, full(s), a.n0 + 64, k0);
+        } else {  // one box of (128 n, 64 k)
+          tma_load(sb, &tma_b, full(s), k0, a.n0);
+        }
       }
     }
-  };
-
-  float c[4][4][4];
+  } else {  // the consumer warpgroups: rows 64 c .. 64 c + 63 of each tile
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    float acc[64];
+    int it = 0;  // K steps consumed so far, over every tile
+    uint8_t* const tile = epi + c * kEpiBytes;
+    float2 bias[16];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const TileAt a = tile_at(p, t, tiles_m, tiles_n);
+      wg_sync(c);  // the previous tile's epilogue is done with the tiles
+      epilogue_inputs<MODE>(p, bias, tile, a.m0 + 64 * c, a.n0, tid);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < a.nk; ++kt, ++it) {
+        const int s = it % kStages;
+        mbar_wait(full(s), (it / kStages) & 1);
+        const uint32_t sa = ring + s * kStageBytes, sb = sa + kABytes;
+        fence_acc(acc);
+        wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < nk) load_stage(st, kbeg + st * kBK);
-    cp_async_commit();
-  }
-  const int j8 = lane / 8, r8 = lane % 8;
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();  // stage kt has landed
-    __syncthreads();  // ... for every thread; and stage kt - 1 is read
-    const int next = kt + kStages - 1;
-    if (next < nk) load_stage(next % kStages, kbeg + next * kBK);
-    cp_async_commit();
-    const __nv_bfloat16* as = smem + (kt % kStages) * (kASize + kBSize);
-    const __nv_bfloat16* bs = as + kASize;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int mb = wm + i * 16;
-        if (AKM)  // a_j = (m + 8 (j % 2), k + 8 (j / 2)) of X[k][m]
-          ldsm4_t(af[i], as + (kk + (j8 / 2) * 8 + r8) * kLdA + mb +
-                             (j8 % 2) * 8);
-        else
-          ldsm4(af[i], as + (mb + lane % 16) * kLdA + kk + (lane / 16) * 8);
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          const uint64_t da =
+              AKM ? wgmma_desc(sa + c * kAtom + kk * 2048, kAtom, 1024)
+                  : wgmma_desc(sa + c * kAtom + kk * 32, 16, 1024);
+          const uint64_t db = BKN ? wgmma_desc(sb + kk * 2048, kAtom, 1024)
+                                  : wgmma_desc(sb + kk * 32, 16, 1024);
+          wgmma128<AKM, BKN>(acc, da, db);
+        }
+        wgmma_commit();
+        fence_acc(acc);
+        // The previous step's products are done: release its stage.
+        wgmma_wait<1>();
+        if (kt > 0 && tid == 0) mbar_arrive(empty((it - 1) % kStages));
       }
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        const int nb = wn + jp * 16;
-        uint32_t r[4];  // b0, b1 of n tile 2jp, then of 2jp + 1
-        if (BKN)
-          ldsm4_t(r, bs + (kk + (j8 % 2) * 8 + r8) * kLdB + nb +
-                         (j8 / 2) * 8);
-        else
-          ldsm4(r, bs + (nb + (j8 / 2) * 8 + r8) * kLdB + kk + (j8 % 2) * 8);
-        bf[2 * jp][0] = r[0];
-        bf[2 * jp][1] = r[1];
-        bf[2 * jp + 1][0] = r[2];
-        bf[2 * jp + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_bf16(c[i][j], af[i], bf[j][0], bf[j][1]);
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (a.nk > 0 && tid == 0) mbar_arrive(empty((it - 1) % kStages));
+      epilogue_tile<MODE>(p, acc, bias, tile, a.m0 + 64 * c, a.n0, a.z, c,
+                          tid);
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int m = m0 + wm + i * 16 + g + hr * 8;
-        const int n = n0 + wn + j * 8 + 2 * t;
-        if (m < p.M && n < p.N)
-          epilogue2<MODE>(p, m, n, c[i][j][2 * hr], c[i][j][2 * hr + 1]);
-      }
 }
 
-// The tensor-core body needs bf16, 16-byte aligned rows, operand widths
-// (the contiguous dims) and N that are multiples of 8, and one of the
-// (layout, epilogue) pairs launch_mma instantiates.
-inline bool gemm_mma_ok(const Gemm<float>&) { return false; }
-inline bool gemm_mma_ok(const Gemm<__nv_bfloat16>& p) {
+// ---- Host side: tensor maps, launch ----
+
+// cuTensorMapEncodeTiled, taken from the CUDA driver through the runtime
+// (the libraries link the runtime alone, not libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 matrix of `outer` rows of `inner` elements, rows ld elements apart,
+// read in boxes of box_outer rows of box_inner elements with the 128-byte
+// swizzle; loads outside the matrix are zeros. The encoder is a CUDA driver
+// call and needs the thread's current context, which only a runtime call
+// makes current on a thread new to this library (autograd's backward
+// thread).
+inline int encode_map(CUtensorMap* map, const __nv_bfloat16* base,
+                      long long inner, long long outer, long long ld,
+                      int box_inner, int box_outer) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<__nv_bfloat16*>(base), dims, strides, box,
+                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+inline int num_sms() {
+  static const int n = [] {
+    int dev = 0, sms = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+  }();
+  return n;
+}
+
+inline bool aligned_to(const void* ptr, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+}
+
+// The tensor-core body takes bf16 with operand widths (the contiguous dims)
+// and N that are multiples of 8, and 16-byte aligned bases: the operands'
+// (TMA), and those of the outputs and of res, aux and the fp32 sum (the
+// epilogue moves them in 16-byte chunks; the bias in pairs).
+inline bool gemm_wgmma_ok(const Gemm<float>&) { return false; }
+inline bool gemm_wgmma_ok(const Gemm<__nv_bfloat16>& p) {
   const bool a_ok = p.a_km ? p.M % 8 == 0 : p.K % 8 == 0;
   const bool b_ok = p.b_kn ? p.N % 8 == 0 : p.K % 8 == 0;
-  const int md = p.mode;
-  const bool pair =
-      p.a_km ? p.b_kn && md == kEpiPartial
-             : (p.b_kn ? md == kEpiGeluGrad || md == kEpiF32 ||
-                             md == kEpiF32Add || md == kEpiRound
-                       : md == kEpiBias || md == kEpiBiasRes ||
-                             md == kEpiBiasGelu);
-  return pair && a_ok && b_ok && p.N % 8 == 0 && p.lda % 8 == 0 &&
-         p.ldb % 8 == 0 &&
-         p.k_chunk % kBK == 0 && reinterpret_cast<uintptr_t>(p.a) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(p.b) % 16 == 0;
-}
-
-inline int launch_mma(const Gemm<float>&, dim3, cudaStream_t) {
-  return (int)cudaErrorInvalidValue;
-}
-// Shared memory of gemm_mma_kernel<AKM, BKN>: kStages stages of its A and
-// B tiles.
-constexpr size_t mma_smem(bool akm, bool bkn) {
-  return kStages * sizeof(__nv_bfloat16) *
-         ((akm ? kBK * (kBM + 8) : kBM * (kBK + 8)) +
-          (bkn ? kBK * (kBN + 8) : kBN * (kBK + 8)));
+  return a_ok && b_ok && p.N % 8 == 0 && p.lda % 8 == 0 && p.ldb % 8 == 0 &&
+         p.k_chunk % kBK == 0 && aligned_to(p.a, 16) && aligned_to(p.b, 16) &&
+         aligned_to(p.out, 16) && aligned_to(p.out2, 16) &&
+         aligned_to(p.outf, 16) && aligned_to(p.res, 16) &&
+         aligned_to(p.aux, 16) && aligned_to(p.bias, 4);
 }
 
 template <bool AKM, bool BKN, int MODE>
-int launch_mma_as(const Gemm<__nv_bfloat16>& p, dim3 grid, cudaStream_t st) {
-  constexpr size_t smem = mma_smem(AKM, BKN);
-  const int err = set_smem(gemm_mma_kernel<AKM, BKN, MODE>, smem);
+int launch_wgmma_as(const Gemm<__nv_bfloat16>& p, int splits,
+                    cudaStream_t st) {
+  // A runtime call first: it makes the context current for the encoder.
+  int err = set_smem(gemm_wgmma_kernel<AKM, BKN, MODE>, kGemmSmem);
   if (err) return err;
-  gemm_mma_kernel<AKM, BKN, MODE><<<grid, 256, smem, st>>>(p);
+  CUtensorMap ta, tb;
+  err = AKM ? encode_map(&ta, p.a, p.M, p.K, p.lda, 64, kBK)
+            : encode_map(&ta, p.a, p.K, p.M, p.lda, kBK, kBM);
+  if (err) return err;
+  err = BKN ? encode_map(&tb, p.b, p.N, p.K, p.ldb, 64, kBK)
+            : encode_map(&tb, p.b, p.K, p.N, p.ldb, kBK, kBN);
+  if (err) return err;
+  const int tiles_m = cdiv(p.M, kBM), tiles_n = cdiv(p.N, kBN);
+  const long long tiles = (long long)tiles_m * tiles_n * splits;
+  gemm_wgmma_kernel<AKM, BKN, MODE>
+      <<<(int)(tiles < num_sms() ? tiles : num_sms()), kGemmThreads,
+         kGemmSmem, st>>>(ta, tb, p, tiles_m, tiles_n, (int)tiles);
   return (int)cudaGetLastError();
 }
 
-// The (layout, epilogue) pairs the stacks use: forward products (mk, nk)
-// with the forward epilogues, input gradients (mk, kn) with the backward
-// ones, weight gradients (km, kn) as split partials.
-inline int launch_mma(const Gemm<__nv_bfloat16>& p, dim3 grid,
-                      cudaStream_t st) {
-  if (p.a_km && p.b_kn && p.mode == kEpiPartial)
-    return launch_mma_as<true, true, kEpiPartial>(p, grid, st);
-  if (!p.a_km && p.b_kn) {
-    switch (p.mode) {
-      case kEpiGeluGrad:
-        return launch_mma_as<false, true, kEpiGeluGrad>(p, grid, st);
-      case kEpiF32: return launch_mma_as<false, true, kEpiF32>(p, grid, st);
-      case kEpiF32Add:
-        return launch_mma_as<false, true, kEpiF32Add>(p, grid, st);
-      case kEpiRound:
-        return launch_mma_as<false, true, kEpiRound>(p, grid, st);
-    }
-  }
-  if (!p.a_km && !p.b_kn) {
-    switch (p.mode) {
-      case kEpiBias: return launch_mma_as<false, false, kEpiBias>(p, grid, st);
-      case kEpiBiasRes:
-        return launch_mma_as<false, false, kEpiBiasRes>(p, grid, st);
-      case kEpiBiasGelu:
-        return launch_mma_as<false, false, kEpiBiasGelu>(p, grid, st);
-    }
-  }
+// Each library defines launch_wgmma for the (layout, epilogue) pairs it
+// launches, and instantiates no other: block_stack_fwd.cu the forward
+// products (mk, nk) with the bias epilogues, block_stack_bwd.cu the input
+// gradients (mk, kn) and the weight gradients' partials (km, kn). Another
+// pair is an error, not a slower body.
+int launch_wgmma(const Gemm<__nv_bfloat16>& p, int splits, cudaStream_t st);
+inline int launch_wgmma(const Gemm<float>&, int, cudaStream_t) {
   return (int)cudaErrorInvalidValue;
 }
 
@@ -503,12 +847,47 @@ inline int launch_mma(const Gemm<__nv_bfloat16>& p, dim3 grid,
 template <typename T>
 int gemm(Gemm<T> p, int splits, cudaStream_t st) {
   p.k_chunk = ((cdiv(p.K, splits) + kBK - 1) / kBK) * kBK;
-  if (gemm_mma_ok(p))
-    return launch_mma(p, dim3(cdiv(p.N, kBN), cdiv(p.M, kBM), splits), st);
+  if (gemm_wgmma_ok(p)) return launch_wgmma(p, splits, st);
   gemm_scalar_kernel<T><<<dim3(cdiv(p.N, kScTile), cdiv(p.M, kScTile),
                                splits),
                           256, 0, st>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The tensor-core body alone, for the check of each template on the card
+// (each library's C entry *_gemm): one product of bf16 operands stored dense
+// in the given layouts (A (M, K), or (K, M) with a_km; B (N, K), or (K, N)
+// with b_kn), epilogue `mode` into the given outputs, over `splits` K
+// ranges. A product that the tensor-core body does not take is an error
+// here, not a run of the scalar body.
+inline int gemm_body_entry(const void* a, const void* b, const void* bias,
+                           const void* res, const void* aux, void* out,
+                           void* out2, float* outf, int M, int N, int K,
+                           int a_km, int b_kn, int mode, int gelu,
+                           int splits, void* stream) {
+  typedef __nv_bfloat16 T;
+  Gemm<T> p = {};
+  p.a = static_cast<const T*>(a);
+  p.b = static_cast<const T*>(b);
+  p.lda = a_km ? M : K;
+  p.ldb = b_kn ? N : K;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.a_km = a_km != 0;
+  p.b_kn = b_kn != 0;
+  p.mode = mode;
+  p.gelu = gelu;
+  p.bias = static_cast<const T*>(bias);
+  p.res = static_cast<const T*>(res);
+  p.aux = static_cast<const T*>(aux);
+  p.out = static_cast<T*>(out);
+  p.out2 = static_cast<T*>(out2);
+  p.outf = outf;
+  if (M < 1 || N < 1 || K < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+  p.k_chunk = ((cdiv(K, splits) + kBK - 1) / kBK) * kBK;
+  if (!gemm_wgmma_ok(p)) return (int)cudaErrorInvalidValue;
+  return gemm(p, splits, static_cast<cudaStream_t>(stream));
 }
 
 // y (M, N) = epilogue(x (M, K) . W^T), W (N, K).

@@ -32,8 +32,8 @@
 // VMEM). This card's HBM holds them (1.77 GB for the flagship encoder's 12
 // blocks at B=256, 1.08 GB for the decoder's 4), so the forward keeps them
 // when a gradient is wanted and this kernel launches no forward work: per
-// block, in reverse, the GEMMs of the input gradients (tensor-core bodies
-// as in the forward, with the weight read transposed by ldmatrix.trans), the
+// block, in reverse, the GEMMs of the input gradients (the forward's wgmma
+// body, with the weight read MN-major through wgmma's transpose bit), the
 // attention backward of kernel #3 (attention_bwd.cuh's LSE bodies, from the
 // saved row log-sum-exp and ctx: one kernel at Sk <= 64, else one block per
 // (sample*head, 64-query tile) for dq and one per (sample*head, 64-key tile)
@@ -71,6 +71,28 @@ namespace {
   } while (0)
 
 constexpr int kRowsPer = 64;  // rows per column-partial chunk
+
+// The tensor-core body's (layout, epilogue) pairs this library launches:
+// the input gradients, dy (mk) . W (kn), with the backward epilogues, and
+// the weight gradients' split partials, dy^T (km) . x (kn).
+int launch_wgmma(const Gemm<__nv_bfloat16>& p, int splits,
+                 cudaStream_t st) {
+  if (p.a_km && p.b_kn && p.mode == kEpiPartial)
+    return launch_wgmma_as<true, true, kEpiPartial>(p, splits, st);
+  if (!p.a_km && p.b_kn) {
+    switch (p.mode) {
+      case kEpiGeluGrad:
+        return launch_wgmma_as<false, true, kEpiGeluGrad>(p, splits, st);
+      case kEpiF32:
+        return launch_wgmma_as<false, true, kEpiF32>(p, splits, st);
+      case kEpiF32Add:
+        return launch_wgmma_as<false, true, kEpiF32Add>(p, splits, st);
+      case kEpiRound:
+        return launch_wgmma_as<false, true, kEpiRound>(p, splits, st);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 // ---------------------------------------------------------------------------
 // Reductions
@@ -122,8 +144,10 @@ int bias_grad(const Tin* x, int M, int N, float* part, T* dst,
   return reduce_rows<kSumColumns>(part, R, N, N, dst, st);
 }
 
-// Row splits of a weight-gradient GEMM: enough (out x in) tiles times
-// splits for two waves of the card's 132 SMs, at least 256 rows a split.
+// Row splits of a weight-gradient GEMM: enough (out x in) tiles of kBM x
+// kBN times splits for two rounds of the persistent grid's 132 blocks, at
+// least 256 rows a split. The partials' workspace (max_wpart) is sized by
+// the same function.
 long long dw_splits(long long out, long long in, long long rows) {
   const long long tiles = (long long)cdiv(out, kBM) * cdiv(in, kBN);
   const long long z = std::min((long long)cdiv(2 * 132, tiles),
@@ -499,6 +523,25 @@ int block_stack_bwd(const void* qstack, const void* kv, const void* const* w,
                      static_cast<__nv_bfloat16*>(dq0),
                      static_cast<__nv_bfloat16*>(dkv), dw, work, s, gelu, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// One product of the tensor-core body alone, for a backward pair (a_km = 0,
+// b_kn = 1 with mode 3 GELU gradient, 4 fp32, 5 fp32 add or 6 rounded; or
+// a_km = b_kn = 1 with mode 7, the split partials (splits, M, N) in outf):
+// see gemm_body_entry in block_common.cuh. Returns a cudaError_t.
+int block_stack_bwd_gemm(const void* a, const void* b, const void* bias,
+                         const void* res, const void* aux, void* out,
+                         void* out2, float* outf, int M, int N, int K,
+                         int a_km, int b_kn, int mode, int gelu, int splits,
+                         void* stream) {
+  return gemm_body_entry(a, b, bias, res, aux, out, out2, outf, M, N, K,
+                         a_km, b_kn, mode, gelu, splits, stream);
+}
+
+// The row splits of a weight-gradient product (out, in) over `rows` rows,
+// as the stack takes them (dw_splits).
+int block_stack_bwd_dw_splits(int out, int in, int rows) {
+  return (int)dw_splits(out, in, rows);
 }
 
 const char* block_stack_bwd_error_string(int err) {

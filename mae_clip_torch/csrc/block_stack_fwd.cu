@@ -22,8 +22,9 @@
 // Design. On the TPU the grid (block, batch tile) runs in order on one core
 // with a block's weights resident in VMEM while the batch streams past. On
 // this card one call walks the L blocks in order and, per block, launches
-// LayerNorm, the four GEMMs (q, kv, proj + residual, fc1 + GELU, fc2 +
-// residual) as bf16 tensor-core GEMMs over all B*Sq rows at once (no
+// LayerNorm, the five GEMMs (q, kv, proj + residual, fc1 + GELU, fc2 +
+// residual) on the bf16 wgmma body (block_common.cuh: TMA, wgmma, 128 x 128
+// tiles on a persistent grid) over all B*Sq rows at once (no
 // padding: each sample's keys are exactly its Sk rows), and the attention
 // forward of kernels #1/#2 (attention_fwd.cuh) with P normalised before it
 // is rounded, reading q, k and v in place in qp and kvp. qstack[l] is block
@@ -65,6 +66,23 @@ namespace {
     const int e_ = (expr);    \
     if (e_ != 0) return e_;   \
   } while (0)
+
+// The tensor-core body's (layout, epilogue) pairs this library launches:
+// the forward products, x (mk) . W^T (nk), with the bias epilogues.
+int launch_wgmma(const Gemm<__nv_bfloat16>& p, int splits,
+                 cudaStream_t st) {
+  if (!p.a_km && !p.b_kn) {
+    switch (p.mode) {
+      case kEpiBias:
+        return launch_wgmma_as<false, false, kEpiBias>(p, splits, st);
+      case kEpiBiasRes:
+        return launch_wgmma_as<false, false, kEpiBiasRes>(p, splits, st);
+      case kEpiBiasGelu:
+        return launch_wgmma_as<false, false, kEpiBiasGelu>(p, splits, st);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 template <typename T>
 int stack_fwd(const T* q0, const T* kv, const void* const* w_, T* out,
@@ -215,6 +233,18 @@ int block_stack_fwd(const void* q0, const void* kv, const void* const* w,
                      static_cast<__nv_bfloat16*>(qstack), work, state, s,
                      gelu, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// One product of the tensor-core body alone, for a forward pair (a_km = b_kn
+// = 0; mode 0 bias, 1 bias + residual, 2 bias + GELU): see gemm_body_entry
+// in block_common.cuh. Returns a cudaError_t.
+int block_stack_fwd_gemm(const void* a, const void* b, const void* bias,
+                         const void* res, const void* aux, void* out,
+                         void* out2, float* outf, int M, int N, int K,
+                         int a_km, int b_kn, int mode, int gelu, int splits,
+                         void* stream) {
+  return gemm_body_entry(a, b, bias, res, aux, out, out2, outf, M, N, K,
+                         a_km, b_kn, mode, gelu, splits, stream);
 }
 
 const char* block_stack_error_string(int err) {

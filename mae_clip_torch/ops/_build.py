@@ -154,6 +154,9 @@ def load_patch_embed() -> ctypes.CDLL:
 
 _LL = ctypes.c_longlong
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
+# The stacks' GEMM body alone (block_stack_{fwd,bwd}_gemm): a, b, bias, res,
+# aux, out, out2, outf; M, N, K, a_km, b_kn, mode, gelu, splits; stream.
+_GEMM_ARGS = [_VP] * 8 + [_I32] * 8 + [_VP]
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,6 +171,8 @@ def load_block_stack_fwd() -> ctypes.CDLL:
     lib.block_stack_fwd.argtypes = [vp, vp, _PTRS, vp, vp, vp, vp] \
         + [i32] * 10 + [vp]
     lib.block_stack_fwd.restype = i32
+    lib.block_stack_fwd_gemm.argtypes = _GEMM_ARGS
+    lib.block_stack_fwd_gemm.restype = i32
     lib.block_stack_error_string.argtypes = [i32]
     lib.block_stack_error_string.restype = ctypes.c_char_p
     return lib
@@ -183,6 +188,10 @@ def load_block_stack_bwd() -> ctypes.CDLL:
     lib.block_stack_bwd.argtypes = [vp, vp, _PTRS, vp, vp, vp, vp, _PTRS,
                                     vp] + [i32] * 10 + [vp]
     lib.block_stack_bwd.restype = i32
+    lib.block_stack_bwd_gemm.argtypes = _GEMM_ARGS
+    lib.block_stack_bwd_gemm.restype = i32
+    lib.block_stack_bwd_dw_splits.argtypes = [i32] * 3
+    lib.block_stack_bwd_dw_splits.restype = i32
     lib.block_stack_bwd_error_string.argtypes = [i32]
     lib.block_stack_bwd_error_string.restype = ctypes.c_char_p
     return lib

@@ -53,13 +53,18 @@ ignored.
   from either wrapper) and ``fused_block_stack.bwd_launches`` (#7), one per
   stack, and the state buffers #6's wrapper allocates in
   ``fused_block_stack.state_allocs``.
+* ``gemm_body`` / ``gemm_body_ref``: one product of the GEMM body that #6
+  and #7 run for every bf16 product (``csrc/block_common.cuh``: TMA loads,
+  wgmma, a persistent grid), alone, for each (layout, epilogue) pair the
+  stacks launch (``GEMM_PAIRS``), and its plain version; for checking each
+  template on the card. The stacks call the body from C.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -633,3 +638,155 @@ def fused_block_stack_fwd_plain_bwd(q0: torch.Tensor,
     return _FusedBlockStackFwdPlainBwd.apply(q0, kv if cross else None,
                                              n_heads, gelu, cross,
                                              *[w[k] for k in W_KEYS])
+
+
+# ---------------------------------------------------------------------------
+# The stacks' GEMM body alone
+# ---------------------------------------------------------------------------
+
+# block_common.cuh's EpiMode, in order.
+GEMM_MODES = ("bias", "bias_res", "bias_gelu", "gelu_grad", "f32", "f32_add",
+              "round", "partial")
+# The (A layout, B layout, epilogue) products the stacks launch, and the
+# kernel whose library instantiates each: #6 the forward products
+# x (mk) . W^T (nk), #7 the input gradients dy (mk) . W (kn) and the weight
+# gradients' split partials dy^T (km) . x (kn).
+GEMM_PAIRS = {("mk", "nk", "bias"): "fwd", ("mk", "nk", "bias_res"): "fwd",
+              ("mk", "nk", "bias_gelu"): "fwd",
+              ("mk", "kn", "gelu_grad"): "bwd", ("mk", "kn", "f32"): "bwd",
+              ("mk", "kn", "f32_add"): "bwd", ("mk", "kn", "round"): "bwd",
+              ("km", "kn", "partial"): "bwd"}
+# What each epilogue writes ("out" and "out2" in the compute dtype, "outf"
+# fp32, (splits, M, N) for the partials).
+GEMM_OUTPUTS = {"bias": ("out",), "bias_res": ("out",),
+                "bias_gelu": ("out", "out2"), "gelu_grad": ("outf", "out"),
+                "f32": ("outf",), "f32_add": ("outf",), "round": ("out",),
+                "partial": ("outf",)}
+
+
+def gemm_dims(a: torch.Tensor, b: torch.Tensor, a_km: bool,
+              b_kn: bool) -> Tuple[int, int, int]:
+    """(M, N, K) of a product whose A is stored (M, K), or (K, M) with
+    ``a_km``, and whose B is stored (N, K), or (K, N) with ``b_kn``."""
+    m, k = (a.shape[1], a.shape[0]) if a_km else a.shape
+    n = b.shape[1] if b_kn else b.shape[0]
+    return m, n, k
+
+
+def gemm_k_chunk(k: int, splits: int) -> int:
+    """The K extent of one split, as the body cuts K: ceil(K / splits)
+    rounded up to a multiple of 64."""
+    per_split = -(-k // splits)
+    return -(-per_split // 64) * 64
+
+
+def gemm_body_ref(a, b, mode: str, a_km: bool = False, b_kn: bool = False,
+                  bias=None, res=None, aux=None, outf=None,
+                  gelu: str = "tanh", splits: int = 1) -> Dict[str, Any]:
+    """Plain version of one product of the stacks' GEMM body: the fp32
+    product of ``a`` and ``b`` as stored (layouts as ``gemm_dims``), then
+    the epilogue ``mode`` with the body's roundings, the stacks' own
+    (``_proj``, the residual add, ``_gelu``, ``_gelu_grad``): bias
+    round(acc + b); bias_res round(res + round(acc + b)); bias_gelu a1 =
+    round(acc + b), out2 = round(gelu(a1)); gelu_grad v = acc *
+    gelu'(aux), fp32 and rounded; f32 acc; f32_add outf + acc; round
+    round(acc); partial the fp32 sum over each split's K range
+    (``gemm_k_chunk``). Returns the outputs the body writes
+    (``GEMM_OUTPUTS``)."""
+    dt = a.dtype
+    am = a.float().t() if a_km else a.float()   # (M, K)
+    bm = b.float() if b_kn else b.float().t()   # (K, N)
+    if mode == "partial":
+        c = gemm_k_chunk(am.shape[1], splits)
+        return {"outf": torch.stack([am[:, z * c:(z + 1) * c]
+                                     @ bm[z * c:(z + 1) * c]
+                                     for z in range(splits)])}
+    acc = am @ bm
+    if mode == "bias":
+        return {"out": (acc + bias.float()).to(dt)}
+    if mode == "bias_res":
+        return {"out": res + (acc + bias.float()).to(dt)}
+    if mode == "bias_gelu":
+        a1 = (acc + bias.float()).to(dt)
+        return {"out": a1, "out2": _gelu(a1.float(), gelu).to(dt)}
+    if mode == "gelu_grad":
+        v = acc * _gelu_grad(aux.float(), gelu)
+        return {"outf": v, "out": v.to(dt)}
+    if mode == "f32":
+        return {"outf": acc}
+    if mode == "f32_add":
+        return {"outf": outf + acc}
+    if mode == "round":
+        return {"out": acc.to(dt)}
+    raise ValueError(f"gemm body: unknown epilogue {mode!r}")
+
+
+def _gemm_library(a_km: bool, b_kn: bool, mode: str):
+    """(the library's C entry, its error string) for a pair the stacks
+    launch."""
+    from mae_clip_torch.ops._build import (load_block_stack_bwd,
+                                           load_block_stack_fwd)
+
+    key = ("km" if a_km else "mk", "kn" if b_kn else "nk", mode)
+    if key not in GEMM_PAIRS:
+        raise ValueError(f"gemm body: the stacks launch no product {key}; "
+                         f"they launch {sorted(GEMM_PAIRS)}")
+    if GEMM_PAIRS[key] == "fwd":
+        lib = load_block_stack_fwd()
+        return lib.block_stack_fwd_gemm, lib.block_stack_error_string
+    lib = load_block_stack_bwd()
+    return lib.block_stack_bwd_gemm, lib.block_stack_bwd_error_string
+
+
+def _launch_gemm(a, b, mode: str, a_km: bool = False, b_kn: bool = False,
+                 bias=None, res=None, aux=None, out=None, out2=None,
+                 outf=None, gelu: str = "tanh", splits: int = 1) -> None:
+    """The body on the card into the given outputs (f32_add adds into
+    ``outf``): bf16, dense. Raises where the body does not take the product;
+    no other body runs it."""
+    entry, error_string = _gemm_library(a_km, b_kn, mode)
+    m, n, k = gemm_dims(a, b, a_km, b_kn)
+    err = entry(_ptr(a), _ptr(b), _ptr(bias), _ptr(res), _ptr(aux),
+                _ptr(out), _ptr(out2), _ptr(outf), m, n, k, int(a_km),
+                int(b_kn), GEMM_MODES.index(mode), _GELU_CODES[gelu], splits,
+                _stream(a))
+    _raise_on_error(err, error_string, "gemm body")
+
+
+def gemm_body(a, b, mode: str, a_km: bool = False, b_kn: bool = False,
+              bias=None, res=None, aux=None, outf=None, gelu: str = "tanh",
+              splits: int = 1) -> Dict[str, Any]:
+    """One product of the stacks' GEMM body alone, as ``gemm_body_ref``
+    (``outf`` is the f32_add epilogue's input, left as it is): the
+    tensor-core body of the library that launches the pair on a CUDA
+    tensor (bf16, dense), its plain version on a CPU one. For checking each
+    template; the stacks call the body from C."""
+    if a.device.type == "cpu":
+        return gemm_body_ref(a, b, mode, a_km, b_kn, bias, res, aux, outf,
+                             gelu, splits)
+    tensors = [t for t in (a, b, bias, res, aux, outf) if t is not None]
+    if a.dtype != torch.bfloat16 or any(
+            t.device != a.device or not t.is_contiguous() for t in tensors):
+        raise ValueError("gemm body: contiguous bf16 operands on one CUDA "
+                         "device")
+    m, n, _ = gemm_dims(a, b, a_km, b_kn)
+    outs = {}
+    for name in GEMM_OUTPUTS[mode]:
+        if name == "outf":
+            outs[name] = (outf.clone() if mode == "f32_add" else
+                          torch.empty((splits, m, n) if mode == "partial"
+                                      else (m, n), dtype=torch.float32,
+                                      device=a.device))
+        else:
+            outs[name] = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    _launch_gemm(a, b, mode, a_km, b_kn, bias, res, aux, outs.get("out"),
+                 outs.get("out2"), outs.get("outf"), gelu, splits)
+    return outs
+
+
+def gemm_dw_splits(out: int, in_: int, rows: int) -> int:
+    """The row splits #7 takes for a weight gradient (out, in) over ``rows``
+    rows (``dw_splits`` in csrc/block_stack_bwd.cu)."""
+    from mae_clip_torch.ops._build import load_block_stack_bwd
+
+    return load_block_stack_bwd().block_stack_bwd_dw_splits(out, in_, rows)

@@ -23,6 +23,7 @@ those are not installed
 import pytest
 import torch
 
+import chip_smoke
 from mae_clip_torch.models.layers import init_weights
 from mae_clip_torch.models.vit import ViTConfig, ViTEncoder, use_fused_blocks
 from mae_clip_torch.ops import block_kernel as BK
@@ -198,6 +199,102 @@ def test_cpu_wrappers_take_the_plain_versions(fn):
     assert x.grad is not None and x.grad.shape == x.shape
     assert (BK.fused_block_stack.launches,
             BK.fused_block_stack.bwd_launches) == before
+
+
+def _gemm_operands(pair, m, n, k, seed):
+    """CPU bf16 operands of one product of the stacks' GEMM body."""
+    gen = torch.Generator().manual_seed(seed)
+    return chip_smoke._gemm_inputs(gen, pair, m, n, k,
+                                   device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("mode", BK.GEMM_MODES)
+def test_gemm_body_ref_is_the_stacks_math(mode):
+    """The GEMM body's plain version gives the plain stacks' own values:
+    each forward product as ``_proj`` (plus the residual, the GELU), each
+    input gradient as ``_mm_back`` with its epilogue, bit for bit; the
+    weight gradients' split partials sum to ``_dweight`` (fp32, atol
+    1e-4 / rtol 1e-5: the splits sum in another order) and hold zeros in a
+    split past K; and the wrapper takes the plain version on the CPU."""
+    pair = next(p for p in BK.GEMM_PAIRS if p[2] == mode)
+    m, n, k = 37, 24, 100  # splits of 64 rows: 64, 36 and none
+    splits = 3
+    x = _gemm_operands(pair, m, n, k, 21)
+    a, b, dt = x["a"], x["b"], torch.bfloat16
+    got = BK.gemm_body_ref(a, b, mode, pair[0] == "km", pair[1] == "kn",
+                           x["bias"], x["res"], x["aux"], x["outf"], "tanh",
+                           splits if mode == "partial" else 1)
+    assert set(got) == set(BK.GEMM_OUTPUTS[mode])
+    if mode == "partial":
+        assert got["outf"].shape == (splits, m, n)
+        torch.testing.assert_close(got["outf"].sum(0), BK._dweight(a, b),
+                                   atol=1e-4, rtol=1e-5)
+        assert not got["outf"][2].any()  # the third split starts past K
+    else:
+        want = {"bias": lambda: {"out": BK._proj(a, b, x["bias"], dt)},
+                "bias_res": lambda: {"out": x["res"] + BK._proj(
+                    a, b, x["bias"], dt)},
+                "bias_gelu": lambda: {
+                    "out": BK._proj(a, b, x["bias"], dt),
+                    "out2": BK._gelu(BK._proj(a, b, x["bias"], dt).float(),
+                                     "tanh").to(dt)},
+                "gelu_grad": lambda: {
+                    "outf": BK._mm_back(a, b) * BK._gelu_grad(
+                        x["aux"].float(), "tanh"),
+                    "out": (BK._mm_back(a, b) * BK._gelu_grad(
+                        x["aux"].float(), "tanh")).to(dt)},
+                "f32": lambda: {"outf": BK._mm_back(a, b)},
+                "f32_add": lambda: {"outf": x["outf"] + BK._mm_back(a, b)},
+                "round": lambda: {"out": BK._mm_back(a, b).to(dt)}}[mode]()
+        for name, y in want.items():
+            assert torch.equal(got[name], y), name
+    on_cpu = BK.gemm_body(a, b, mode, pair[0] == "km", pair[1] == "kn",
+                          x["bias"], x["res"], x["aux"], x["outf"], "tanh",
+                          splits if mode == "partial" else 1)
+    for name in got:
+        assert torch.equal(on_cpu[name], got[name]), name
+
+
+def test_gemm_body_launches_only_the_stacks_pairs():
+    """A (layout, epilogue) pair that no stack launches is refused before
+    any library is loaded; the pairs cover every epilogue once, in
+    block_common.cuh's order, and the breakdown names them in that order."""
+    a = torch.zeros(8, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="launch no product"):
+        BK._launch_gemm(a, a, "bias", a_km=True)
+    assert sorted(p[2] for p in BK.GEMM_PAIRS) == sorted(BK.GEMM_MODES)
+    assert len(chip_smoke.EPILOGUES) == len(BK.GEMM_MODES)
+
+
+@pytest.mark.parametrize("pair", list(BK.GEMM_PAIRS),
+                         ids=[",".join(p) for p in BK.GEMM_PAIRS])
+def test_breakdown_groups_by_layout_and_epilogue(pair):
+    """chip_smoke's launch breakdown maps the wgmma body's demangled names
+    to groups by (layout, epilogue), and only the forward products to a
+    forward group (#7's breakdown must hold none); a GEMM body it does not
+    know, such as the old mma.sync one, falls in a group that the smoke run
+    fails on, as the scalar body's does."""
+    mode = BK.GEMM_MODES.index(pair[2])
+    flags = ["true" if pair[0] == "km" else "false",
+             "true" if pair[1] == "kn" else "false"]
+    name = ("void (anonymous namespace)::gemm_wgmma_kernel<"
+            f"{flags[0]}, {flags[1]}, {mode}>(CUtensorMap_st, "
+            "CUtensorMap_st, (anonymous namespace)::Gemm<__nv_bfloat16>, "
+            "int, int, int)")
+    group = chip_smoke._kernel_group(name)
+    assert group == (f"GEMM wgmma<{pair[0]},{pair[1]},"
+                     f"{chip_smoke.EPILOGUES[mode]}>")
+    assert group.startswith(chip_smoke.FORWARD_GROUPS) == (pair[:2] ==
+                                                           ("mk", "nk"))
+    assert not group.startswith(chip_smoke.OFF_BODY_GROUPS)
+    for other in (f"void (anonymous namespace)::gemm_mma_kernel<"
+                  f"{flags[0]}, {flags[1]}, {mode}>((anonymous namespace)::"
+                  "Gemm<__nv_bfloat16>)",
+                  "void (anonymous namespace)::gemm_scalar_kernel<"
+                  "__nv_bfloat16>((anonymous namespace)::Gemm<"
+                  "__nv_bfloat16>)"):
+        assert chip_smoke._kernel_group(other).startswith(
+            chip_smoke.OFF_BODY_GROUPS)
 
 
 def test_use_fused_blocks_gate():
@@ -392,3 +489,59 @@ def test_wide_heads_raise_on_card(cuda):
     q0, kv, w, _ = _inputs(shape, 4, cuda, torch.bfloat16)
     with pytest.raises(ValueError, match="Dh <= 256"):
         BK.fused_block_stack(q0, kv, w, 1, "tanh", cross=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", list(BK.GEMM_PAIRS),
+                         ids=[",".join(p) for p in BK.GEMM_PAIRS])
+def test_gemm_body_matches_reference_on_card(cuda, pair):
+    """Each template of the stacks' GEMM body (a (layout, epilogue) pair the
+    stacks launch) against the fp32 product of the same
+    bf16 operands with the epilogue in torch, at a cut of each main product
+    (1,024 rows, the stacks' N and K) and at M 200, N 24, K 40 (3 splits
+    for the partials): fp32 outputs within 1e-3 * max(1, max |ref|), bf16
+    ones within one bf16 step per rounding of the reference rounded the
+    same way, plus the fp32 sums' order (chip_smoke.check_gemm_case)."""
+    gen = torch.Generator().manual_seed(15)
+    for shape in chip_smoke.gemm_check_shapes(pair):
+        assert chip_smoke.check_gemm_case(pair, *shape, gen) <= 1.0
+
+
+@pytest.mark.cuda
+def test_gemm_body_refuses_what_it_does_not_take_on_card(cuda):
+    """A product the tensor-core body does not take raises rather than run
+    another body: rows of 36 elements (not 16-byte multiples), and a
+    contiguous residual whose base is 4 bytes off a 16-byte boundary (the
+    epilogue reads it in 16-byte chunks)."""
+    a = torch.randn(64, 36, device=cuda).to(torch.bfloat16)
+    b = torch.randn(32, 36, device=cuda).to(torch.bfloat16)
+    bias = torch.zeros(32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="gemm body"):
+        BK.gemm_body(a, b, "bias", bias=bias)
+    a = torch.randn(64, 32, device=cuda).to(torch.bfloat16)
+    b = torch.randn(32, 32, device=cuda).to(torch.bfloat16)
+    res = torch.zeros(64 * 32 + 2, device=cuda,
+                      dtype=torch.bfloat16)[2:].view(64, 32)
+    assert res.is_contiguous() and res.data_ptr() % 16 == 4
+    with pytest.raises(RuntimeError, match="gemm body"):
+        BK.gemm_body(a, b, "bias_res", bias=bias, res=res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [CARD[2], CARD[4]], ids=["self", "cross"])
+def test_backward_is_deterministic_on_card(cuda, shape):
+    """Two calls of #7 on the same qstack, state and dout give the same
+    bits: the weight gradients' split partials are summed in a fixed order,
+    with no atomics."""
+    q0, kv, w, dout = _inputs(shape, 10, cuda, torch.bfloat16)
+    cross, h = shape[-1], shape[4]
+    _, qstack, state = BK._launch_fwd(q0, kv, w, h, "tanh", cross,
+                                      keep_state=True)
+    first = BK._launch_bwd(qstack, kv, w, dout, state, h, "tanh", cross)
+    second = BK._launch_bwd(qstack, kv, w, dout, state, h, "tanh", cross)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    if cross:
+        assert torch.equal(first[1], second[1])
+    for k in BK.W_KEYS:
+        assert torch.equal(first[2][k], second[2][k]), k
