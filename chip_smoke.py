@@ -10,11 +10,11 @@ and #2/#4 also as training runs them: the forward writing the row
 log-sum-exp, the backward reading it and the output; heads up to 256),
 each template of the GEMM body that the block stacks share (every (layout,
 epilogue) pair they launch, at cuts of their products and a ragged shape)
-against the fp32 product with its epilogue in torch, and the in-step
-augmentation against the CPU's. Then it drives the port's
-three paths through their entry
-points, each with the kernels' launch counts set to 0 just before and read
-just after:
+against the fp32 product with its epilogue in torch (and checks that a bf16
+masked patch embedding at the pretrain shape runs that body with its
+gathered rows alone), and the in-step augmentation against the CPU's. Then
+it drives the port's three paths through their entry points, each with the
+kernels' launch counts set to 0 just before and read just after:
 
 * serving (slice 1): the flagship model (ViT-S/16 + DistilBERT, random
   seeded weights, bf16) over HTTP, with the card's embeddings checked
@@ -41,8 +41,9 @@ Last, it times each kernel at the training and pretraining shapes beside
 its bound, its plain version and the PyTorch call that computes the same
 thing (for the block stacks, which no single call computes, the port's own
 per-block path on the same weights), and each of the stacks' bf16 products
-alone on their GEMM body beside ``F.linear`` / ``torch.matmul``. Any failed
-check raises, so the run exits non-zero. The last line of standard output is
+alone on their GEMM body beside ``F.linear`` / ``torch.matmul``, and the
+cast of the fp32 patches that runs in front of the masked patch embedding.
+Any failed check raises, so the run exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``; before it come the ``{"kernels": [...]}``
 summary and the card's name and power limit.
 
@@ -405,6 +406,15 @@ def check_backward_kernels(worst: dict) -> None:
 # The MAE-pretrain step's masked patch embedding: (B, N, Din) patches,
 # K visible rows, Dm outputs.
 PATCH_EMBED_SHAPE = (256, 196, 768, 49, 384)
+# Held against the plain version besides: the tensor-core body with a ragged
+# M tile (M = 145), a last K stage partly past Din and a ragged N tile; an
+# odd shape with a ragged row tile; widths that are not multiples of 8 (the
+# scalar body, in bf16 too).
+PATCH_EMBED_CHECKS = ((5, 40, 200, 29, 136), (3, 20, 48, 7, 40),
+                      (2, 9, 30, 5, 13))
+# The launch breakdown's group of #5's bf16 body (_kernel_group): the
+# stacks' tensor-core GEMM body with the gathered A.
+PATCH_EMBED_BODY = "GEMM wgmma<gather,nk,bias>"
 
 
 def _patch_embed_inputs(gen, shape, dtype):
@@ -419,15 +429,16 @@ def _patch_embed_inputs(gen, shape, dtype):
 
 def check_patch_embed_kernel(worst: dict) -> None:
     """Kernel #5 against its plain version on the card, fp32 and bf16, at
-    the pretrain step's shape and an odd one (ragged last row tile), and
-    once through autograd (its backward is plain torch)."""
+    the pretrain step's shape and at ``PATCH_EMBED_CHECKS``, and once
+    through autograd (its backward is plain torch). A traced bf16 call at
+    the pretrain step's shape must run the tensor-core body alone."""
     from mae_clip_torch.ops import patch_embed as PE
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(6)
     name = "masked_patch_embed"
     worst[name] = 0.0
-    for shape in (PATCH_EMBED_SHAPE, (3, 20, 48, 7, 40)):
+    for shape in (PATCH_EMBED_SHAPE, *PATCH_EMBED_CHECKS):
         for dt in (torch.float32, torch.bfloat16):
             p, ids, w, b = _patch_embed_inputs(gen, shape, dt)
             got = PE.masked_patch_embed(p, ids, w, b)
@@ -451,6 +462,16 @@ def check_patch_embed_kernel(worst: dict) -> None:
             for n, x, y in zip(("patches", "W", "b"), got, want)]
     log(f"  {name} bf16 {PATCH_EMBED_SHAPE} autograd: max abs err of the "
         f"gradients {max(errs):.3e}")
+    window = profile_window(lambda: PE.masked_patch_embed(p, ids, w, b),
+                            top=0, names=True)
+    groups = {_kernel_group(k): n for k, (_, n) in
+              window["kernels_by_name"].items()}
+    log(f"  {name} bf16 {PATCH_EMBED_SHAPE}: kernels of one traced call "
+        f"{groups}")
+    if set(groups) != {PATCH_EMBED_BODY}:
+        raise AssertionError(f"{name}: a bf16 call at {PATCH_EMBED_SHAPE} ran "
+                             f"{groups}, not the tensor-core body alone "
+                             f"({PATCH_EMBED_BODY})")
 
 
 # Block stacks (B, Sq, Sk, D, H, F, L, cross) held against the plain
@@ -1137,7 +1158,7 @@ def time_pretrain_kernels() -> dict:
     moved = ((b * k * d_in + d_m * d_in + d_m + b * k * d_m) * elt
              + ids.numel() * ids.element_size())
     # The yardstick is two PyTorch calls: the gather, then F.linear.
-    out["masked_patch_embed"] = _timed(
+    t = out["masked_patch_embed"] = _timed(
         f"patches ({b},{n},{d_in}) bf16, ids ({b},{k}), W ({d_m},{d_in}); "
         f"library = take_along_dim + F.linear (two calls)",
         lambda: PE.masked_patch_embed(p, ids, w, bias),
@@ -1145,6 +1166,19 @@ def time_pretrain_kernels() -> dict:
         lambda: F.linear(torch.take_along_dim(p, ids[:, :, None], 1), w,
                          bias),
         *_bound_ms(moved, 2 * b * k * d_in * d_m, dt), repeats=7)
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    # PatchEmbed casts all N rows of each image to the compute type before
+    # the kernel reads K of them (models/vit.py): the cast alone (read fp32,
+    # write bf16, once each), and the cast followed by the kernel.
+    p32 = p.float()
+    t["cast_ms"] = _device_ms(lambda: p32.to(dt))
+    t["cast_bound_ms"] = p32.numel() * (4 + 2) / HBM_BYTES_PER_S * 1e3
+    t["cast_and_kernel_ms"] = _device_ms(
+        lambda: PE.masked_patch_embed(p32.to(dt), ids, w, bias))
+    log(f"  masked_patch_embed: {100 * t['bound_share']:.1f} % of its bound; "
+        f"the cast of the fp32 patches in front of it "
+        f"{t['cast_ms']:.4f} ms (bound {t['cast_bound_ms']:.4f}), cast + "
+        f"kernel {t['cast_and_kernel_ms']:.4f} ms")
 
     b, s, h, d = 256, 197, 2, 128
     qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(DEVICE, dt)
@@ -1221,11 +1255,14 @@ def _kernel_group(name: str) -> str:
     """The group of a block stack's kernel in a launch breakdown: the GEMM
     bodies by template (operand layouts, epilogue), the weight-gradient
     reduce, the column sums, LayerNorm forward and backward, attention
-    forward and backward."""
-    m = re.search(r"gemm_wgmma_kernel<(\w+),\s*(\w+),\s*(\d+)>", name)
+    forward and backward; the body with a gathered A (kernel #5) as
+    layout "gather"."""
+    m = re.search(r"gemm_wgmma_kernel<(\w+),\s*(\w+),\s*(\d+)"
+                  r"(?:,\s*(\w+))?>", name)
     if m:
         km, kn = m[1] in ("true", "1"), m[2] in ("true", "1")
-        return (f"GEMM wgmma<{'km' if km else 'mk'},{'kn' if kn else 'nk'},"
+        a = "gather" if m[4] in ("true", "1") else "km" if km else "mk"
+        return (f"GEMM wgmma<{a},{'kn' if kn else 'nk'},"
                 f"{EPILOGUES[int(m[3])]}>")
     m = re.search(r"reduce_rows_kernel<[^<>]*?(\d+)>", name)
     if m:
@@ -2436,6 +2473,10 @@ def main() -> int:
             extra["design_bound_ms"] = t["design_bound_ms"]
         if name == "flash_attention":
             extra["ms_without_lse"] = times["flash_attention_no_lse"]["ms"]
+        if name == "masked_patch_embed":
+            extra.update({k: t[k] for k in ("bound_share", "cast_ms",
+                                            "cast_bound_ms",
+                                            "cast_and_kernel_ms")})
         if name in wide_times:
             extra["head_dim_256"] = {
                 k: wide_times[name][k] for k in ("shape", "ms", "plain_ms",

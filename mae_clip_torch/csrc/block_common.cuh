@@ -3,9 +3,10 @@
 // epilogues, and the block's attention, which runs the attention kernels'
 // own bodies (attention_fwd.cuh, attention_bwd.cuh) on the stack's packed
 // q and kv rows, and the layout of the training state that the forward
-// keeps for the backward (State, at the end). Included inside each source's
-// unnamed namespace (through attention_common.cuh's), so each library keeps
-// its own copy.
+// keeps for the backward (State, at the end). The masked patch embedding
+// (patch_embed.cu) runs the tensor-core GEMM body with a gathered A.
+// Included inside each source's unnamed namespace (through
+// attention_common.cuh's), so each library keeps its own copy.
 // ops/_build.py hashes this file with every source that includes it.
 //
 // Layouts. Activations are dense (rows, width) row-major in the compute
@@ -139,6 +140,12 @@ struct Gemm {
   T* out;           // (M, N)
   T* out2;          // (M, N)
   float* outf;      // (M, N), or (splits, M, N) partials
+  // A gathered A (kernel #5, patch_embed.cu; the tensor-core body with
+  // GATHER): row m of A is row (m / gather_k) * gather_n + gather_ids[m]
+  // of the (rows, lda) matrix at a; an index outside [0, gather_n) gives a
+  // row of NaN. Null for the block stacks.
+  const long long* gather_ids;
+  int gather_k, gather_n;
 };
 
 template <typename T>
@@ -294,6 +301,14 @@ __global__ void __launch_bounds__(256) gemm_scalar_kernel(Gemm<T> p) {
 // stores are masked per row and column, and a split's K range
 // (p.k_chunk) is a multiple of 64, so no stage crosses into the next
 // split's rows.
+//
+// With GATHER (kernel #5, patch_embed.cu) A's rows are picked by an index
+// each, which TMA's boxes of consecutive rows cannot bring: the whole
+// producer warpgroup copies them instead (produce_gathered below). Those
+// copies, not the products, bound it, so its tiles are 128 x 192
+// (kGatherBN, wgmma m64n192k16): each gathered row serves 192 output
+// columns, not 128. The consumers, the ring and the epilogue are the same
+// code at either width.
 
 // Raises a kernel's dynamic shared-memory limit when it needs over 48 KB.
 template <typename K>
@@ -304,7 +319,8 @@ int set_smem(K* kernel, size_t bytes) {
 }
 
 constexpr int kBM = 128;  // rows of a tile: two consumer warpgroups of 64
-constexpr int kBN = 128;  // columns of a tile
+constexpr int kBN = 128;  // columns of a tile (GATHER: kGatherBN)
+constexpr int kGatherBN = 192;
 constexpr int kBK = 64;   // K per stage
 constexpr int kGemmThreads = 384;
 constexpr int kStageBytes = (kBM + kBN) * kBK * 2;
@@ -323,6 +339,11 @@ constexpr int kEpiBytes = 2 * 64 * (128 + 8) * 2;
 // and 1 KB to align the ring to 1024.
 constexpr size_t kGemmSmem =
     (size_t)kStages * kStageBytes + 128 + 2 * kEpiBytes + 1024;
+// GATHER: the bias epilogue alone, so one tile of 64 x 192 bf16 a consumer
+// warpgroup; the ring's stages of 40 KB keep the 1024-byte alignment.
+constexpr int kGatherEpiBytes = 64 * (kGatherBN + 8) * 2;
+constexpr size_t kGatherSmem = (size_t)kStages * (kBM + kGatherBN) * kBK * 2 +
+                               128 + 2 * kGatherEpiBytes + 1024;
 
 __device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
@@ -345,25 +366,26 @@ __device__ __forceinline__ void wg_sync(int c) {  // consumer warpgroup c
   asm volatile("bar.sync %0, 128;\n" ::"r"(c + 1) : "memory");
 }
 
-template <typename U>
-__host__ __device__ constexpr int tile_stride() {  // bytes a row of a tile of U
-  return (128 + 8) * (int)sizeof(U);
+// Bytes a row of a tile of U, BN columns wide (128, or kGatherBN).
+template <typename U, int BN = kBN>
+__host__ __device__ constexpr int tile_stride() {
+  return (BN + 8) * (int)sizeof(U);
 }
 
-// The (64 x 128) tile at rows m0.., columns n0.. of the (M, N) matrix g,
+// The (64 x BN) tile at rows m0.., columns n0.. of the (M, N) matrix g,
 // from the shared tile t to global memory (LOAD: the other way, by
 // cp.async, which the caller waits for), in 16-byte chunks; rows and
 // columns outside the matrix are skipped (N is a multiple of 8).
-template <typename U, bool LOAD>
+template <typename U, bool LOAD, int BN = kBN>
 __device__ __forceinline__ void tile_copy(U* g, uint8_t* t, int m0, int n0,
                                           int M, int N, int tid) {
-  constexpr int kChunks = 128 * (int)sizeof(U) / 16;  // chunks a row
-  constexpr int kPer = 16 / (int)sizeof(U);           // elements a chunk
+  constexpr int kChunks = BN * (int)sizeof(U) / 16;  // chunks a row
+  constexpr int kPer = 16 / (int)sizeof(U);          // elements a chunk
 #pragma unroll
   for (int k = 0; k < 64 * kChunks / 128; ++k) {
     const int ch = tid + 128 * k, r = ch / kChunks, cc = ch % kChunks;
     const int m = m0 + r, n = n0 + cc * kPer;
-    uint8_t* s = t + r * tile_stride<U>() + cc * 16;
+    uint8_t* s = t + r * tile_stride<U, BN>() + cc * 16;
     if (LOAD) {
       cp_async16(s, m < M && n < N ? g + (long long)m * N + n : g,
                  m < M && n < N);
@@ -375,13 +397,14 @@ __device__ __forceinline__ void tile_copy(U* g, uint8_t* t, int m0, int n0,
 }
 
 // The fragment's pair (columns 8 j + 2 q, +1 of local row r) in a tile.
-template <typename U>
+template <typename U, int BN = kBN>
 __device__ __forceinline__ uint8_t* at(uint8_t* t, int r, int j, int q) {
-  return t + r * tile_stride<U>() + (8 * j + 2 * q) * (int)sizeof(U);
+  return t + r * tile_stride<U, BN>() + (8 * j + 2 * q) * (int)sizeof(U);
 }
+template <int BN = kBN>
 __device__ __forceinline__ void put_bf16(uint8_t* t, int r, int j, int q,
                                          float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(at<__nv_bfloat16>(t, r, j, q)) =
+  *reinterpret_cast<__nv_bfloat162*>(at<__nv_bfloat16, BN>(t, r, j, q)) =
       __floats2bfloat162_rn(v0, v1);
 }
 __device__ __forceinline__ float2 get_bf16(uint8_t* t, int r, int j, int q) {
@@ -397,15 +420,18 @@ __device__ __forceinline__ float2 get_f32(uint8_t* t, int r, int j, int q) {
 }
 
 // What the epilogue of consumer warpgroup c reads for its rows m0 ..
-// m0 + 63, columns n0 .. n0 + 127, issued before the tile's products so
+// m0 + 63, columns n0 .. n0 + BN - 1, issued before the tile's products so
 // that it lands while they run: res or aux into the second bf16 tile, the
 // fp32 sum fp32 add adds to into the tile, by cp.async; and the bias pairs
 // of the thread's columns into b. The previous tile's epilogue must be
-// done with the tiles (wg_sync first).
-template <int MODE>
+// done with the tiles (wg_sync first). Tiles other than 128 wide take the
+// bias epilogue alone.
+template <int MODE, int BN = kBN>
 __device__ __forceinline__ void epilogue_inputs(const Gemm<__nv_bfloat16>& p,
-                                                float2 (&b)[16], uint8_t* t,
-                                                int m0, int n0, int tid) {
+                                                float2 (&b)[BN / 8],
+                                                uint8_t* t, int m0, int n0,
+                                                int tid) {
+  static_assert(BN == kBN || MODE == kEpiBias, "one epilogue tile");
   typedef __nv_bfloat16 T;
   if (MODE == kEpiBiasRes || MODE == kEpiGeluGrad) {
     tile_copy<T, true>(const_cast<T*>(MODE == kEpiBiasRes ? p.res : p.aux),
@@ -416,7 +442,7 @@ __device__ __forceinline__ void epilogue_inputs(const Gemm<__nv_bfloat16>& p,
   cp_async_commit();
   if (MODE == kEpiBias || MODE == kEpiBiasRes || MODE == kEpiBiasGelu) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < BN / 8; ++j) {
       const int n = n0 + 8 * j + 2 * (tid % 4);
       b[j] = n < p.N ? ld2(p.bias + n) : make_float2(0.f, 0.f);
     }
@@ -424,18 +450,19 @@ __device__ __forceinline__ void epilogue_inputs(const Gemm<__nv_bfloat16>& p,
 }
 
 // The epilogue of consumer warpgroup c (rows m0 .. m0 + 63, columns
-// n0 .. n0 + 127 of split z) with the mode fixed at compile time, from its
-// accumulators acc[4 j + 2 r + e] (local row 16 warp + g + 8 r, column
+// n0 .. n0 + BN - 1 of split z) with the mode fixed at compile time, from
+// its accumulators acc[4 j + 2 r + e] (local row 16 warp + g + 8 r, column
 // 8 j + 2 q + e) and epilogue_inputs' b and tiles: the same arithmetic as
 // epilogue(). (With the mode picked per element at run time, as the scalar
 // body does, the block stacks ran about twice as long on the card.) t is
 // the warpgroup's epilogue tile.
-template <int MODE>
+template <int MODE, int BN = kBN>
 __device__ __forceinline__ void epilogue_tile(const Gemm<__nv_bfloat16>& p,
-                                              float (&acc)[64],
-                                              const float2 (&b)[16],
+                                              float (&acc)[BN / 2],
+                                              const float2 (&b)[BN / 8],
                                               uint8_t* t, int m0, int n0,
                                               int z, int c, int tid) {
+  static_assert(BN == kBN || MODE == kEpiBias, "one epilogue tile");
   typedef __nv_bfloat16 T;
   const int warp = tid / 32, g = (tid % 32) / 4, q = tid % 4;
   const int M = p.M, N = p.N;
@@ -443,13 +470,13 @@ __device__ __forceinline__ void epilogue_tile(const Gemm<__nv_bfloat16>& p,
   cp_async_wait<0>();  // this thread's input chunks
   wg_sync(c);          // everyone's
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
     for (int r2 = 0; r2 < 2; ++r2) {
       const int r = 16 * warp + g + 8 * r2;
       const float v0 = acc[4 * j + 2 * r2], v1 = acc[4 * j + 2 * r2 + 1];
       if (MODE == kEpiBias) {
-        put_bf16(t, r, j, q, v0 + b[j].x, v1 + b[j].y);
+        put_bf16<BN>(t, r, j, q, v0 + b[j].x, v1 + b[j].y);
       } else if (MODE == kEpiBiasRes) {
         const float2 x = get_bf16(t2, r, j, q);
         put_bf16(t, r, j, q, x.x + rnd<T>(v0 + b[j].x),
@@ -482,7 +509,7 @@ __device__ __forceinline__ void epilogue_tile(const Gemm<__nv_bfloat16>& p,
     wg_sync(c);
   }
   if (MODE == kEpiBias || MODE == kEpiBiasRes || MODE == kEpiRound) {
-    tile_copy<T, false>(p.out, t, m0, n0, M, N, tid);
+    tile_copy<T, false, BN>(p.out, t, m0, n0, M, N, tid);
   } else if (MODE == kEpiBiasGelu) {
     if (p.out) tile_copy<T, false>(p.out, t, m0, n0, M, N, tid);
     tile_copy<T, false>(p.out2, t2, m0, n0, M, N, tid);
@@ -567,11 +594,31 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+// Orders this thread's writes to shared memory through the generic proxy
+// (stores, cp.async) before later accesses through the async proxy (wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// 16 bytes global -> shared at a shared-window address (zeros where valid
+// is false).
+__device__ __forceinline__ void cp_async16_at(uint32_t dst, const void* src,
+                                              bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 16 bytes of bf16 NaN at a shared-window address.
+__device__ __forceinline__ void st_nan16(uint32_t dst) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" ::"r"(dst),
+               "r"(0x7FC07FC0u)
+               : "memory");
+}
 // Keeps the compiler from moving accesses of the accumulators across the
 // asynchronous wgmma that writes them.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // A shared-memory matrix descriptor with the 128-byte swizzle: the start
@@ -585,6 +632,29 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lead,
          (uint64_t)(stride >> 4) << 32 | 1ull << 62;
 }
 
+// The accumulator operands of a wgmma: its register list for 64 and 96
+// fp32 per thread (N = 128 and 192), and their "+f" constraints, 8 at a
+// time.
+#define WGMMA_REGS64                                                        \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63"
+#define WGMMA_REGS96                                                        \
+  WGMMA_REGS64                                                              \
+  ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, " \
+  "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "  \
+  "%92, %93, %94, %95"
+#define WGMMA_ACC8(i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WGMMA_ACC64                                                     \
+  WGMMA_ACC8(0), WGMMA_ACC8(8), WGMMA_ACC8(16), WGMMA_ACC8(24),         \
+      WGMMA_ACC8(32), WGMMA_ACC8(40), WGMMA_ACC8(48), WGMMA_ACC8(56)
+#define WGMMA_ACC96 \
+  WGMMA_ACC64, WGMMA_ACC8(64), WGMMA_ACC8(72), WGMMA_ACC8(80), WGMMA_ACC8(88)
+
 // d (64 x 128, fp32) += A (64 x 16) B (16 x 128), both bf16 in shared
 // memory; TA / TB: A / B MN-major (their transpose bits).
 template <int TA, int TB>
@@ -592,33 +662,22 @@ __device__ __forceinline__ void wgmma128(float (&d)[64], uint64_t da,
                                          uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WGMMA_REGS64
       "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : WGMMA_ACC64
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (64 x 192, fp32) += A (64 x 16) B (16 x 192), both bf16 and K-major in
+// shared memory (the gathered body's product).
+__device__ __forceinline__ void wgmma192(float (&d)[96], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {" WGMMA_REGS96
+      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_ACC96
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // Tile t of the persistent walk: (n tile, m tile, split), n fastest, and the
@@ -626,10 +685,11 @@ __device__ __forceinline__ void wgmma128(float (&d)[64], uint64_t da,
 struct TileAt {
   int m0, n0, z, kbeg, nk;
 };
+template <int BN = kBN>
 __device__ __forceinline__ TileAt tile_at(const Gemm<__nv_bfloat16>& p,
                                           int t, int tiles_m, int tiles_n) {
   TileAt a;
-  a.n0 = (t % tiles_n) * kBN;
+  a.n0 = (t % tiles_n) * BN;
   t /= tiles_n;
   a.m0 = (t % tiles_m) * kBM;
   a.z = t / tiles_m;
@@ -639,22 +699,101 @@ __device__ __forceinline__ TileAt tile_at(const Gemm<__nv_bfloat16>& p,
   return a;
 }
 
-template <bool AKM, bool BKN, int MODE>
+// ---- The gathered A's producer (GATHER, kernel #5) ----
+//
+// All 128 threads of warpgroup 0 copy A's stage by cp.async, 16 bytes a
+// copy: thread i moves chunk i % 8 of rows i / 8 + 16 j (j < 8), so 8
+// threads cover a 128-byte row and a warp's copy 4 whole rows. Each chunk
+// goes where TMA's 128-byte swizzle would have put it (chunk c of row r at
+// 16 (c ^ r % 8) bytes into the row; every stage is 1024-aligned), so the
+// consumers read it through the same descriptors. Thread 0 still brings
+// B's box by TMA. Each thread reads the indices of its 8 rows once a tile
+// and keeps their addresses in registers (the producer's copies bound the
+// kernel: reading the offsets from shared memory at every stage cost 8 %).
+// A row with an index outside [0, gather_n), or past M, is written as NaN
+// by plain stores, so its output row is NaN (and never stored past M).
+//
+// The full barrier counts thread 0's expect_tx for B and, from every
+// thread, a plain arrival (which releases its NaN stores) and a cp.async
+// arrival, which stays pending until the thread's copies of the stage have
+// landed. cp.async and the stores write through the generic proxy and
+// wgmma reads through the async proxy, so each consumer thread, once the
+// stage is full, orders those writes before its wgmma with a proxy fence.
+// The pointers are 64-bit, so the gathered matrix may have any size.
+template <int BN>
+__device__ __forceinline__ void produce_gathered(
+    const Gemm<__nv_bfloat16>& p, const CUtensorMap* tma_b, uint32_t ring,
+    uint32_t bars, int tiles_m, int tiles_n, int tiles) {
+  constexpr uint32_t kABytes = kBM * kBK * 2, kBBytes = BN * kBK * 2;
+  constexpr uint32_t kStage = kABytes + kBBytes;
+  const int tid = threadIdx.x, chunk = tid % 8;
+  // This thread's chunks: rows tid / 8 + 16 j, all with the same r % 8.
+  const uint32_t at0 = (tid / 8) * 128 + ((chunk ^ (tid / 8) % 8) << 4);
+  const uint4* const a16 = reinterpret_cast<const uint4*>(p.a);
+  int it = 0;  // K steps issued so far, over every tile
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const TileAt a = tile_at<BN>(p, t, tiles_m, tiles_n);
+    const uint4* src[8];  // this thread's chunks at k = 0, or null
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int m = a.m0 + tid / 8 + 16 * j;
+      src[j] = nullptr;
+      if (m < p.M) {
+        const long long id = p.gather_ids[m];
+        if (id >= 0 && id < p.gather_n)
+          src[j] = a16 + ((long long)(m / p.gather_k) * p.gather_n + id) *
+                             (p.lda / 8) + chunk;
+      }
+    }
+    for (int kt = 0; kt < a.nk; ++kt, ++it) {
+      const int s = it % kStages;
+      const uint32_t full = bars + 8 * s, sa = ring + s * kStage;
+      mbar_wait(bars + 8 * (kStages + s), ((it / kStages) & 1) ^ 1);
+      const int k0 = a.kbeg + kt * kBK;
+      const bool in = k0 + 8 * chunk < p.K;  // else zeros
+      const int k16 = in ? k0 >> 3 : 0;  // in 16-byte chunks
+      if (tid == 0) {
+        mbar_expect_tx(full, kBBytes);
+        tma_load(sa + kABytes, tma_b, full, k0, a.n0);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t dst = sa + at0 + j * 16 * 128;
+        if (src[j] == nullptr)
+          st_nan16(dst);
+        else
+          cp_async16_at(dst, src[j] + k16, in);
+      }
+      asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                       full)
+                   : "memory");
+      mbar_arrive(full);
+    }
+  }
+}
+
+template <bool AKM, bool BKN, int MODE, bool GATHER = false>
 __global__ void __launch_bounds__(kGemmThreads, 1)
     gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
                       const __grid_constant__ CUtensorMap tma_b,
                       Gemm<__nv_bfloat16> p, int tiles_m, int tiles_n,
                       int tiles) {
+  static_assert(!GATHER || (!AKM && !BKN && MODE == kEpiBias),
+                "the gathered body: rows (mk) by W (nk), with the bias");
+  constexpr int BN = GATHER ? kGatherBN : kBN;  // columns of a tile
   constexpr uint32_t kABytes = kBM * kBK * 2;
+  constexpr uint32_t kStage = kABytes + BN * kBK * 2;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t bars = ring + kStages * kStageBytes;
+  const uint32_t bars = ring + kStages * kStage;
   uint8_t* const epi = smem_raw + (bars + 128 - smem_u32(smem_raw));
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (kStages + s); };
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(full(s), 1);
+      // The producer's expect_tx; GATHER: also each producer thread's
+      // arrival (produce_gathered).
+      mbar_init(full(s), GATHER ? 1 + 128 : 1);
       mbar_init(empty(s), 2);  // one arrival per consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -663,6 +802,10 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
 
   if (threadIdx.x < 128) {  // the producer warpgroup
     setmaxnreg_dec<kProducerRegs>();
+    if constexpr (GATHER) {
+      produce_gathered<BN>(p, &tma_b, ring, bars, tiles_m, tiles_n, tiles);
+      return;
+    }
     if (threadIdx.x != 0) return;
     int it = 0;  // K steps issued so far, over every tile
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -670,8 +813,8 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       for (int kt = 0; kt < a.nk; ++kt, ++it) {
         const int s = it % kStages;
         mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(full(s), kStageBytes);
-        const uint32_t sa = ring + s * kStageBytes, sb = sa + kABytes;
+        mbar_expect_tx(full(s), kStage);
+        const uint32_t sa = ring + s * kStage, sb = sa + kABytes;
         const int k0 = a.kbeg + kt * kBK;
         if (AKM) {  // two boxes of (64 k, 64 m)
           tma_load(sa, &tma_a, full(s), a.m0, k0);
@@ -690,20 +833,22 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   } else {  // the consumer warpgroups: rows 64 c .. 64 c + 63 of each tile
     setmaxnreg_inc<kConsumerRegs>();
     const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
-    float acc[64];
+    float acc[BN / 2];
     int it = 0;  // K steps consumed so far, over every tile
-    uint8_t* const tile = epi + c * kEpiBytes;
-    float2 bias[16];
+    uint8_t* const tile = epi + c * (GATHER ? kGatherEpiBytes : kEpiBytes);
+    float2 bias[BN / 8];
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const TileAt a = tile_at(p, t, tiles_m, tiles_n);
+      const TileAt a = tile_at<BN>(p, t, tiles_m, tiles_n);
       wg_sync(c);  // the previous tile's epilogue is done with the tiles
-      epilogue_inputs<MODE>(p, bias, tile, a.m0 + 64 * c, a.n0, tid);
+      epilogue_inputs<MODE, BN>(p, bias, tile, a.m0 + 64 * c, a.n0, tid);
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       for (int kt = 0; kt < a.nk; ++kt, ++it) {
         const int s = it % kStages;
         mbar_wait(full(s), (it / kStages) & 1);
-        const uint32_t sa = ring + s * kStageBytes, sb = sa + kABytes;
+        // The gathered rows were written through the generic proxy.
+        if constexpr (GATHER) fence_proxy_async();
+        const uint32_t sa = ring + s * kStage, sb = sa + kABytes;
         fence_acc(acc);
         wgmma_fence();
 #pragma unroll
@@ -713,7 +858,10 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
                   : wgmma_desc(sa + c * kAtom + kk * 32, 16, 1024);
           const uint64_t db = BKN ? wgmma_desc(sb + kk * 2048, kAtom, 1024)
                                   : wgmma_desc(sb + kk * 32, 16, 1024);
-          wgmma128<AKM, BKN>(acc, da, db);
+          if constexpr (BN == kBN)
+            wgmma128<AKM, BKN>(acc, da, db);
+          else
+            wgmma192(acc, da, db);
         }
         wgmma_commit();
         fence_acc(acc);
@@ -724,8 +872,8 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       wgmma_wait<0>();
       fence_acc(acc);
       if (a.nk > 0 && tid == 0) mbar_arrive(empty((it - 1) % kStages));
-      epilogue_tile<MODE>(p, acc, bias, tile, a.m0 + 64 * c, a.n0, a.z, c,
-                          tid);
+      epilogue_tile<MODE, BN>(p, acc, bias, tile, a.m0 + 64 * c, a.n0, a.z,
+                              c, tid);
     }
   }
 }
@@ -812,32 +960,37 @@ inline bool gemm_wgmma_ok(const Gemm<__nv_bfloat16>& p) {
          aligned_to(p.aux, 16) && aligned_to(p.bias, 4);
 }
 
-template <bool AKM, bool BKN, int MODE>
+template <bool AKM, bool BKN, int MODE, bool GATHER = false>
 int launch_wgmma_as(const Gemm<__nv_bfloat16>& p, int splits,
                     cudaStream_t st) {
+  constexpr size_t smem = GATHER ? kGatherSmem : kGemmSmem;
+  constexpr int BN = GATHER ? kGatherBN : kBN;
   // A runtime call first: it makes the context current for the encoder.
-  int err = set_smem(gemm_wgmma_kernel<AKM, BKN, MODE>, kGemmSmem);
+  int err = set_smem(gemm_wgmma_kernel<AKM, BKN, MODE, GATHER>, smem);
   if (err) return err;
-  CUtensorMap ta, tb;
-  err = AKM ? encode_map(&ta, p.a, p.M, p.K, p.lda, 64, kBK)
-            : encode_map(&ta, p.a, p.K, p.M, p.lda, kBK, kBM);
-  if (err) return err;
+  CUtensorMap ta = {}, tb;  // GATHER: A takes no tensor map
+  if (!GATHER) {
+    err = AKM ? encode_map(&ta, p.a, p.M, p.K, p.lda, 64, kBK)
+              : encode_map(&ta, p.a, p.K, p.M, p.lda, kBK, kBM);
+    if (err) return err;
+  }
   err = BKN ? encode_map(&tb, p.b, p.N, p.K, p.ldb, 64, kBK)
-            : encode_map(&tb, p.b, p.K, p.N, p.ldb, kBK, kBN);
+            : encode_map(&tb, p.b, p.K, p.N, p.ldb, kBK, BN);
   if (err) return err;
-  const int tiles_m = cdiv(p.M, kBM), tiles_n = cdiv(p.N, kBN);
+  const int tiles_m = cdiv(p.M, kBM), tiles_n = cdiv(p.N, BN);
   const long long tiles = (long long)tiles_m * tiles_n * splits;
-  gemm_wgmma_kernel<AKM, BKN, MODE>
-      <<<(int)(tiles < num_sms() ? tiles : num_sms()), kGemmThreads,
-         kGemmSmem, st>>>(ta, tb, p, tiles_m, tiles_n, (int)tiles);
+  gemm_wgmma_kernel<AKM, BKN, MODE, GATHER>
+      <<<(int)(tiles < num_sms() ? tiles : num_sms()), kGemmThreads, smem,
+         st>>>(ta, tb, p, tiles_m, tiles_n, (int)tiles);
   return (int)cudaGetLastError();
 }
 
 // Each library defines launch_wgmma for the (layout, epilogue) pairs it
 // launches, and instantiates no other: block_stack_fwd.cu the forward
 // products (mk, nk) with the bias epilogues, block_stack_bwd.cu the input
-// gradients (mk, kn) and the weight gradients' partials (km, kn). Another
-// pair is an error, not a slower body.
+// gradients (mk, kn) and the weight gradients' partials (km, kn),
+// patch_embed.cu the gathered rows (mk, GATHER) by W (nk) with the bias.
+// Another pair is an error, not a slower body.
 int launch_wgmma(const Gemm<__nv_bfloat16>& p, int splits, cudaStream_t st);
 inline int launch_wgmma(const Gemm<float>&, int, cudaStream_t) {
   return (int)cudaErrorInvalidValue;

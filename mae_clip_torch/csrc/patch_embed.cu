@@ -18,39 +18,50 @@
 // outside [0, N) reads nothing and gives a row of NaN.
 //
 // The TPU kernel gathers with a one-hot matmul because Mosaic rejects
-// dynamic row loads. Here a block reads each gathered row straight from
-// device memory: the work is one GEMM over the M = B*K gathered rows,
-// N = Dm, K = Din, with the row indirection folded into the A-tile loads.
+// dynamic row loads. Here the row indirection is folded into the loads of
+// one GEMM over the M = B*K gathered rows, N = Dm, K = Din.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16) at the MAE-pretrain
 // step's shape (B=256, N=196, Din=768, K=49, Dm=384, bf16): the rows read
 // (19.3 MB), W (0.6 MB), ids (0.1 MB) and the output (9.6 MB) make 29.6 MB,
-// 8.8 us; 7.4 GFLOP is 7.5 us of tensor-core time. Bound by bytes, barely.
+// 8.8 us; 7.4 GFLOP is 7.5 us of tensor-core time. Bound by bytes, barely:
+// so the products must run on wgmma at near the card's rate while the rows
+// stream in, and each gathered row should come from HBM once.
 //
-// Design, bf16 with Din and Dm multiples of 8 (the pretrain step):
-// embed_mma_kernel, one block of 4 warps per 64 x 64 output tile. Each
-// 64-deep chunk of the 64 gathered rows and of the 64 weight rows is staged
-// in shared memory with 16-byte loads (rows padded by 8 elements: no bank
-// conflicts on the fragment loads); each warp owns 16 rows x 64 columns and
-// runs mma.sync.m16n8k16 (bf16 in, fp32 accumulate). W's rows are already
-// contiguous in Din, the "col" layout the B operand takes. Rows past M and
-// columns past Dm or Din are zero-filled; the output stores are masked.
+// Design, bf16 with Din and Dm multiples of 8 and 16-byte aligned patches,
+// W and out (the pretrain step): the block stacks' tensor-core GEMM body
+// (gemm_wgmma_kernel in block_common.cuh, with GATHER): a persistent grid,
+// a 4-stage ring of 64-deep stages of A and B in shared memory with the
+// 128-byte swizzle, two consumer warpgroups on wgmma, the bias epilogue
+// through shared memory. W comes by TMA as the stacks' weights do. The
+// gathered rows cannot (a TMA box is consecutive rows; one box a row was
+// 5x slower), so the producer warpgroup's 128 threads copy them by
+// cp.async, 16 bytes a copy, each chunk where the swizzle puts it, and the
+// consumers fence the proxies before their wgmma (produce_gathered). Each
+// thread reads its rows' indices once a tile. Those copies, not the
+// products, bound the kernel, so its tiles are 128 x 192 (m64n192k16):
+// each gathered row is copied once for 192 output columns. Tiles run n
+// fastest: the two tiles of an M band (Dm = 384 = 2 x 192) run at once on
+// neighbouring blocks, so each gathered row comes from HBM once and once
+// more from L2. At the pretrain shape M = 12544 = 98 x 128 makes 196
+// tiles on 132 SMs: 1.48 waves, 64 blocks taking a second tile (with 128 x
+// 128 tiles, 294 tiles, 2.23 waves, 30 blocks taking a third).
 //
-// Every other case (fp32, unaligned widths): embed_kernel, 256 threads with
-// scalar fp32 FMAs over 16-deep chunks, each thread 4 rows x 4 columns.
+// Every other case (fp32, unaligned widths or pointers): embed_kernel, 256
+// threads with scalar fp32 FMAs over 16-deep chunks, each thread 4 rows x
+// 4 columns.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "attention_common.cuh"
+#include "block_common.cuh"
 
 namespace {
 
 constexpr int kTile = 64;    // output rows and columns per block
-constexpr int kDepth = 64;   // Din chunk of the tensor-core body
-constexpr int kStep = 16;    // Din chunk of the scalar body
+constexpr int kStep = 16;    // Din chunk
 constexpr int kThreads = 256;
 
 template <typename T>
@@ -137,77 +148,12 @@ __global__ void __launch_bounds__(kThreads) embed_kernel(Params<T> p) {
   }
 }
 
-__global__ void __launch_bounds__(kMmaThreads)
-    embed_mma_kernel(Params<__nv_bfloat16> p) {
-  constexpr int kLd = kDepth + 8, kChunks = kDepth / 8;
-  __shared__ __align__(16) __nv_bfloat16 as[kTile * kLd];
-  __shared__ __align__(16) __nv_bfloat16 ws[kTile * kLd];
-  __shared__ long long rows[kTile];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment row group / column
-  const int r0 = warp * 16 + g;          // this lane's rows r0 and r0 + 8
-  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
-  if (threadIdx.x < kTile) rows[threadIdx.x] = row_offset(p, m0 + threadIdx.x);
-
-  // c[n][2*hr + e]: row r0 + 8*hr, column n0 + 8n + 2t + e.
-  float c[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-
-  for (int k0 = 0; k0 < p.Din; k0 += kDepth) {
-    __syncthreads();  // rows[] is written / the previous chunk is read
-    for (int i = threadIdx.x; i < kTile * kChunks; i += kMmaThreads) {
-      const int r = i / kChunks, cc = (i % kChunks) * 8, col = k0 + cc;
-      uint4 a = make_uint4(0, 0, 0, 0), w = make_uint4(0, 0, 0, 0);
-      if (col < p.Din) {
-        if (rows[r] >= 0)
-          a = *reinterpret_cast<const uint4*>(p.patches + rows[r] + col);
-        if (n0 + r < p.Dm)
-          w = *reinterpret_cast<const uint4*>(
-              p.w + (long long)(n0 + r) * p.Din + col);
-      }
-      *reinterpret_cast<uint4*>(as + r * kLd + cc) = a;
-      *reinterpret_cast<uint4*>(ws + r * kLd + cc) = w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kc = 0; kc < kDepth / 16; ++kc) {
-      const __nv_bfloat16* ar = as + r0 * kLd + kc * 16 + 2 * t;
-      const uint32_t af[4] = {ld32(ar), ld32(ar + 8 * kLd), ld32(ar + 8),
-                              ld32(ar + 8 * kLd + 8)};
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* wr = ws + (n * 8 + g) * kLd + kc * 16 + 2 * t;
-        mma_bf16(c[n], af, ld32(wr), ld32(wr + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = r0 + 8 * hr, m = m0 + r;
-    if (m >= p.M) continue;
-    const bool bad = rows[r] < 0;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int col = n0 + n * 8 + 2 * t;  // Dm % 8 == 0: col + 1 < Dm too
-      if (col >= p.Dm) continue;
-      *reinterpret_cast<__nv_bfloat162*>(p.out + (long long)m * p.Dm + col) =
-          __floats2bfloat162_rn(finish(p, c[n][2 * hr], col, bad),
-                                finish(p, c[n][2 * hr + 1], col + 1, bad));
-    }
-  }
-}
-
-// The tensor-core body needs 16-byte rows: Din and Dm multiples of 8 and
-// the row-loaded pointers on 16-byte boundaries.
-bool mma_eligible(const Params<__nv_bfloat16>& p) {
-  const void* ptrs[3] = {p.patches, p.w, p.out};
-  for (const void* ptr : ptrs)
-    if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
-  return p.Din % 8 == 0 && p.Dm % 8 == 0;
+// This library's pair of the tensor-core body: the gathered rows (mk) by W
+// (nk), with the bias epilogue.
+int launch_wgmma(const Gemm<__nv_bfloat16>& p, int splits, cudaStream_t st) {
+  if (p.gather_ids != nullptr && !p.a_km && !p.b_kn && p.mode == kEpiBias)
+    return launch_wgmma_as<false, false, kEpiBias, true>(p, splits, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -228,13 +174,20 @@ int embed(const void* patches, const long long* ids, const void* w,
   p.K = K;
   p.Din = Din;
   p.Dm = Dm;
-  const dim3 grid((p.M + kTile - 1) / kTile, (Dm + kTile - 1) / kTile);
   if constexpr (sizeof(T) == 2) {
-    if (mma_eligible(p)) {
-      embed_mma_kernel<<<grid, kMmaThreads, 0, stream>>>(p);
-      return (int)cudaGetLastError();
-    }
+    // The tensor-core body takes what gemm_wgmma_ok takes (Din and Dm
+    // multiples of 8, and 16-byte aligned patches, W and out).
+    Gemm<T> g = fwd_gemm(p.patches, p.w, p.M, Dm, Din, kEpiBias);
+    g.k_chunk = cdiv(Din, kBK) * kBK;
+    g.bias = p.bias;
+    g.out = p.out;
+    g.gather_ids = ids;
+    g.gather_k = K;
+    g.gather_n = N;
+    if (gemm_wgmma_ok(g))
+      return launch_wgmma(g, 1, stream);
   }
+  const dim3 grid((p.M + kTile - 1) / kTile, (Dm + kTile - 1) / kTile);
   embed_kernel<T><<<grid, kThreads, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -297,6 +297,28 @@ def test_breakdown_groups_by_layout_and_epilogue(pair):
             chip_smoke.OFF_BODY_GROUPS)
 
 
+def test_breakdown_names_the_gathered_body():
+    """The GEMM body's instances carry a fourth template argument, the
+    gathered A of kernel #5: the stacks' instances (false) keep their
+    groups, and #5's (true) is the group that phase 2 requires of a bf16
+    #5 call, which is neither a forward group of the stacks nor off-body;
+    #5's old mma.sync and scalar bodies are not it."""
+    stem = ("void (anonymous namespace)::gemm_wgmma_kernel<false, false, 0, "
+            "{}>(CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::"
+            "Gemm<__nv_bfloat16>, int, int, int)")
+    assert chip_smoke._kernel_group(stem.format("false")) == \
+        "GEMM wgmma<mk,nk,bias>"
+    group = chip_smoke._kernel_group(stem.format("true"))
+    assert group == chip_smoke.PATCH_EMBED_BODY == "GEMM wgmma<gather,nk,bias>"
+    assert not group.startswith(chip_smoke.FORWARD_GROUPS)
+    assert not group.startswith(chip_smoke.OFF_BODY_GROUPS)
+    for old in ("void (anonymous namespace)::embed_mma_kernel((anonymous "
+                "namespace)::Params<__nv_bfloat16>)",
+                "void (anonymous namespace)::embed_kernel<__nv_bfloat16>("
+                "(anonymous namespace)::Params<__nv_bfloat16>)"):
+        assert chip_smoke._kernel_group(old) != chip_smoke.PATCH_EMBED_BODY
+
+
 def test_use_fused_blocks_gate():
     """'on'/'fwd' engage at heads of a multiple of 128, dropout 0 and a
     known GELU; 'off' and 'auto' never do; an unknown value raises."""

@@ -21,9 +21,12 @@ from mae_clip_torch.ops.patch_embed import (masked_patch_embed,
                                             masked_patch_embed_ref)
 
 # (B, N, Din, K, Dm): the MAE-pretrain step's shape at B=256 (tensor-core
-# body), an odd one with a ragged last row tile (tensor-core body), and
-# widths that are not multiples of 8 (the scalar body, also in bf16).
-SHAPES = [(256, 196, 768, 49, 384), (3, 20, 48, 7, 40), (2, 9, 30, 5, 13)]
+# body), an odd one with a ragged last row tile (tensor-core body), widths
+# that are not multiples of 8 (the scalar body, also in bf16), and one with
+# M = B*K = 145 (one ragged 128-row tile), a last 64-deep K stage partly
+# past Din = 200, and a ragged 128-column tile (Dm = 136; tensor-core body).
+SHAPES = [(256, 196, 768, 49, 384), (3, 20, 48, 7, 40), (2, 9, 30, 5, 13),
+          (5, 40, 200, 29, 136)]
 
 
 @pytest.fixture
@@ -141,3 +144,40 @@ def test_kernel_out_of_range_index_gives_nan_row(cuda):
     assert bool(out[1, 2].isnan().all())
     out[1, 2] = 0
     assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_kernel_misaligned_patches_take_the_scalar_body_on_card(cuda):
+    """``patches`` 2 bytes past a 16-byte boundary: the tensor-core body
+    takes only 16-byte aligned rows, so the call runs the scalar body and
+    gives the plain version's result, not a device fault."""
+    p, ids, w, b = _inputs(SHAPES[3], 8, cuda, torch.bfloat16)
+    storage = torch.empty(p.numel() + 8, dtype=p.dtype, device=cuda)
+    shifted = storage[1:1 + p.numel()].view(p.shape)
+    shifted.copy_(p)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    before = masked_patch_embed.launches
+    got = masked_patch_embed(shifted, ids, w, b)
+    torch.cuda.synchronize()
+    assert masked_patch_embed.launches == before + 1
+    want = masked_patch_embed_ref(p.float(), ids, w.float(), b.float())
+    atol = 2e-2 * max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_out_of_range_indices_in_ragged_tiles_give_nan_rows(cuda):
+    """On the tensor-core body at the ragged shape: an index past N and a
+    negative one each give a row of NaN, in the last (ragged) row tile and
+    in the first; every other row matches the plain version."""
+    p, ids, w, b = _inputs(SHAPES[3], 9, cuda, torch.bfloat16)
+    want = masked_patch_embed_ref(p.float(), ids, w.float(), b.float())
+    ids[4, 28] = p.shape[1]
+    ids[0, 3] = -1
+    out = masked_patch_embed(p, ids, w, b).float()
+    torch.cuda.synchronize()
+    bad = torch.zeros(ids.shape, dtype=torch.bool, device=cuda)
+    bad[4, 28] = bad[0, 3] = True
+    assert bool(out[bad].isnan().all())
+    atol = 2e-2 * max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(out[~bad], want[~bad], atol=atol, rtol=0)

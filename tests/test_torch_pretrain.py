@@ -134,7 +134,8 @@ def _bf16_ulp(x: float) -> float:
 
 
 @pytest.mark.parametrize("b,n,d_in,k,d_m", [(2, 16, 24, 4, 8),
-                                            (3, 20, 48, 7, 40)])
+                                            (3, 20, 48, 7, 40),
+                                            (5, 40, 200, 29, 136)])
 def test_masked_patch_embed_ref_matches_jax(b, n, d_in, k, d_m):
     """The plain version (and the wrapper, which runs it on the CPU)
     against JAX's Pallas kernel in interpret mode: values and the gradients
