@@ -13,7 +13,7 @@ epilogue) pair they launch, at cuts of their products and a ragged shape)
 against the fp32 product with its epilogue in torch (and checks that a bf16
 masked patch embedding at the pretrain shape runs that body with its
 gathered rows alone), and the in-step augmentation against the CPU's. Then
-it drives the port's three paths through their entry points, each with the
+it drives the port's paths through their entry points, each with the
 kernels' launch counts set to 0 just before and read just after:
 
 * serving (slice 1): the flagship model (ViT-S/16 + DistilBERT, random
@@ -35,7 +35,17 @@ kernels' launch counts set to 0 just before and read just after:
   backward, no state), checked for exact launches and state buffers per
   step, a falling loss and moving weights, against one step on the CPU,
   and the serving tower (``encode_full``, no state) fused against per block
-  on the card.
+  on the card;
+* the other options of the training step: ``flagship_siglip_config``'s
+  step at batch 256 as the preset is (AdamW) and with LAMB, the cosine
+  schedule, clipping and EMA, checked for exact launches, moving weights
+  and a rising ``logit_bias``, with the update stage's device and host
+  time and kernels; then, against the CPU at B=8, SigLIP, the hard-label
+  loss with the learnable temperature, SigLIP with LAMB + cosine + clip +
+  EMA over two steps (the card's optimizer also replayed on the CPU from
+  its own gradients) and a trained text tower on tokens with padding
+  masks (#2 / #4 in the text tower), and one step with attention dropout
+  on the card, whose text tower takes the plain attention.
 
 Last, it times each kernel at the training and pretraining shapes beside
 its bound, its plain version and the PyTorch call that computes the same
@@ -1706,12 +1716,13 @@ def _profile_once(fn, top: int, spans, names: bool = False) -> dict:
         # kernels that start inside it are the span's.
         extents = [(e.time_range.start, e.time_range.end) for e in events
                    if e.name == name and e.device_type == DeviceType.CUDA]
+        inside = [k for k in kernels
+                  if any(a <= k.time_range.start < b for a, b in extents)]
         span_ms[name] = dict(
             count=len(hits), device_count=len(extents),
             host_ms=sum(e.cpu_time_total for e in hits) / 1e3,
-            device_ms=sum(k.device_time_total for k in kernels
-                          if any(a <= k.time_range.start < b
-                                 for a, b in extents)) / 1e3)
+            device_ms=sum(k.device_time_total for k in inside) / 1e3,
+            launches=len(inside))
     window = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                   busy_share=busy_ms / wall_ms if busy_ms else None,
                   kernel_launches=len(kernels),
@@ -1901,13 +1912,17 @@ class Captions:
 
 
 def build_train_model(batch: int, compute_dtype: str, device: str,
-                      seed: int = 0, **cfg):
-    from mae_clip_torch import flagship_tpu_config
+                      seed: int = 0, preset: str = "flagship_tpu_config",
+                      text_config=None, **cfg):
+    """``preset`` (a config function of ``mae_clip_torch``) with ``cfg``
+    over it, DistilBERT as ``text_config`` (default: HF's, dropout 0.1),
+    random weights from ``seed``."""
+    import mae_clip_torch
     from mae_clip_torch.models import CLIPModel, DistilBertConfig
 
-    cfg = flagship_tpu_config(batch_size=batch, compute_dtype=compute_dtype,
-                              **cfg)
-    model = CLIPModel(cfg, DistilBertConfig(), device=device)
+    cfg = getattr(mae_clip_torch, preset)(batch_size=batch,
+                                          compute_dtype=compute_dtype, **cfg)
+    model = CLIPModel(cfg, text_config or DistilBertConfig(), device=device)
     return model.init_weights(torch.Generator().manual_seed(seed))
 
 
@@ -1919,21 +1934,24 @@ def _synced_ms(fn) -> float:
 
 
 def train_flagship(fused_blocks: str = "off",
-                   launches_per_step: dict = LAUNCHES_PER_STEP) -> tuple:
+                   launches_per_step: dict = LAUNCHES_PER_STEP,
+                   preset: str = "flagship_tpu_config",
+                   require_fall: bool = True, **overrides) -> tuple:
     """``make_train_step`` on the flagship model at batch 256, bf16, with
-    ``fused_blocks`` as given: text features cached once by the frozen tower,
-    uint8 patches (B, 196, 768) in two batches cycled (the same data for
-    every ``fused_blocks``). Checks the loss falls over 10 steps on one
-    batch, the trainable weights move and the frozen ones do not, and every
-    kernel launches exactly ``launches_per_step`` times per step."""
+    ``fused_blocks`` as given and ``preset`` (with ``overrides``) as its
+    config: text features cached once by the frozen tower, uint8 patches
+    (B, 196, 768) in two batches cycled (the same data for every path).
+    Checks the trainable weights move and the frozen ones do not, every
+    kernel launches exactly ``launches_per_step`` times per step, and, with
+    ``require_fall``, that the loss falls over 10 steps on one batch."""
     from mae_clip_torch.train import (TrainState, make_optimizer,
                                       make_train_step,
                                       precompute_text_features)
 
     rng = np.random.default_rng(TRAIN_DATA_SEED)
     torch.cuda.reset_peak_memory_stats()
-    model = build_train_model(TRAIN_BATCH, "bfloat16", "cuda",
-                              fused_blocks=fused_blocks)
+    model = build_train_model(TRAIN_BATCH, "bfloat16", "cuda", preset=preset,
+                              fused_blocks=fused_blocks, **overrides)
     cfg, dev = model.cfg, model.device
     vocab = model.text_config.vocab_size
     captions = Captions(
@@ -1976,7 +1994,7 @@ def train_flagship(fused_blocks: str = "off",
     if not all(np.isfinite(list(m.values())).all() for m in losses):
         raise AssertionError(f"non-finite training metrics: {losses}")
     log(f"  loss over 10 steps on one batch: {[round(x, 4) for x in total]}")
-    if not np.mean(total[-3:]) < np.mean(total[:3]):
+    if require_fall and not np.mean(total[-3:]) < np.mean(total[:3]):
         raise AssertionError(f"the loss did not fall: {total}")
 
     for i in range(3):
@@ -2009,7 +2027,7 @@ def train_flagship(fused_blocks: str = "off",
 
     median = float(np.median(synced))
     result = dict(batch=TRAIN_BATCH, fused_blocks=fused_blocks,
-                  text_cache_ms=text_ms,
+                  preset=preset, overrides=overrides, text_cache_ms=text_ms,
                   step_ms_median=median, step_ms_min=float(np.min(synced)),
                   step_ms_pipelined=pipelined,
                   pairs_per_s=TRAIN_BATCH / median * 1e3,
@@ -2025,41 +2043,65 @@ def train_flagship(fused_blocks: str = "off",
         f"of {2 * TRAIN_BATCH} captions {text_ms:.1f} ms; peak memory "
         f"{result['peak_memory_gb']:.2f} GB")
     result["stages"] = stages
+    for name in ("logit_scale", "logit_bias"):
+        if hasattr(model, name):
+            value = float(getattr(model, name).detach())
+            result[name] = value
+            log(f"  {name} after {state.step} steps: {value:.6f} (exp "
+                f"{math.exp(value):.6f})")
+    if state.ema is not None:
+        if not all(bool(torch.isfinite(e).all()) for e in state.ema.values()):
+            raise AssertionError("non-finite EMA weights")
+        result["ema_tensors"] = len(state.ema)
     log(f"  profiled 5 steps: {json.dumps(prof)}")
     log(f"  stages of one step (mean of the 5 profiled steps): "
         f"{json.dumps(stages)}")
     return launches, result
 
 
-# make_train_step's spans, and the one torch.optim gives every step.
-STEP_SPANS = ("train_step.forward", "train_step.backward",
-              "Optimizer.step#AdamW.step")
+# make_train_step's spans: the forward, the backward, the optimizer's step
+# (torch.optim's span, its clip and schedule hooks included; one of the
+# three) and, with a learnable temperature or EMA, the clamp and the EMA.
+OPTIMIZER_SPANS = tuple(f"Optimizer.step#{name}.step"
+                        for name in ("AdamW", "Lamb", "Lion"))
+POST_UPDATE_SPAN = "train_step.post_update"
+STEP_SPANS = ("train_step.forward", "train_step.backward", *OPTIMIZER_SPANS,
+              POST_UPDATE_SPAN)
 
 
 def step_stages(prof: dict, steps: int) -> dict:
     """Per step, from ``make_train_step``'s own spans in a profiled window:
-    each stage's host ms (the profiler's overhead included), and its device
-    ms. The autograd engine launches the backward's kernels from its own
-    thread, outside the span, so the backward's device ms is the window's
-    busy time less the other two."""
+    each stage's host ms (the profiler's overhead included), its device ms
+    and, for the update (the optimizer's step and the post-update span
+    together), its kernels. The autograd engine launches the backward's
+    kernels from its own thread, outside the span, so the backward's device
+    ms is the window's busy time less the other stages'."""
     spans = prof["spans"]
-    for name in STEP_SPANS:
-        if spans[name]["count"] != steps:
-            raise AssertionError(f"{name}: {spans[name]['count']} spans in "
-                                 f"{steps} profiled steps")
-    for name in (STEP_SPANS[0], STEP_SPANS[2]):
-        if torch.cuda.is_available() and spans[name]["device_count"] != steps:
-            raise AssertionError(f"{name}: {spans[name]['device_count']} "
-                                 f"extents on the device in {steps} steps")
-    fwd, bwd, adamw = (spans[n] for n in STEP_SPANS)
+    fwd, bwd = spans["train_step.forward"], spans["train_step.backward"]
+    opt = [spans[n] for n in OPTIMIZER_SPANS if spans[n]["count"]]
+    update = opt + ([spans[POST_UPDATE_SPAN]]
+                    if spans[POST_UPDATE_SPAN]["count"] else [])
+    if len(opt) != 1:
+        raise AssertionError(f"{len(opt)} optimizer spans in the window")
+    for name, span in (("forward", fwd), ("backward", bwd),
+                       ("update", update[0]), ("post-update", update[-1])):
+        if span["count"] != steps:
+            raise AssertionError(f"{name}: {span['count']} spans in {steps} "
+                                 "profiled steps")
+        if (name != "backward" and torch.cuda.is_available()
+                and span["device_count"] != steps):
+            raise AssertionError(f"{name}: {span['device_count']} extents "
+                                 f"on the device in {steps} steps")
+    upd_device = sum(u["device_ms"] for u in update)
     return dict(
         forward_host_ms=fwd["host_ms"] / steps,
         backward_host_ms=bwd["host_ms"] / steps,
-        adamw_host_ms=adamw["host_ms"] / steps,
+        optimizer_host_ms=sum(u["host_ms"] for u in update) / steps,
         forward_device_ms=fwd["device_ms"] / steps,
         backward_device_ms=(prof["device_busy_ms"] - fwd["device_ms"]
-                            - adamw["device_ms"]) / steps,
-        adamw_device_ms=adamw["device_ms"] / steps)
+                            - upd_device) / steps,
+        optimizer_device_ms=upd_device / steps,
+        optimizer_launches=sum(u["launches"] for u in update) / steps)
 
 
 # ---------------------------------------------------------------------------
@@ -2067,53 +2109,294 @@ def step_stages(prof: dict, steps: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def check_train_step_against_cpu(rng: np.random.Generator,
-                                 fused_blocks: str = "off") -> dict:
+                                 fused_blocks: str = "off",
+                                 preset: str = "flagship_tpu_config",
+                                 steps: int = 1, tokens: bool = False,
+                                 **overrides) -> dict:
     """The flagship step at full width, B=8, dropout 0, the same weights and
-    masks, with ``fused_blocks`` as given: the card in bf16 with the
-    kernels, the CPU in fp32 with the plain versions. Losses within 2e-2
-    relative; every trainable gradient with cosine >= 0.99 to the CPU's."""
-    from mae_clip_torch.models import CLIPModel
+    masks, with ``fused_blocks`` as given and ``preset`` (with
+    ``overrides``) as its config: the card in bf16 with the kernels, the CPU
+    in fp32 with the plain versions, ``steps`` steps each. With ``tokens``
+    the text tower reads token ids (S=64) with padding masks instead of
+    cached features (train it with ``text_trainable=True``). After the last
+    step: losses within 2e-2 relative; every trainable gradient with cosine
+    >= 0.99 to the CPU's, but those that are 0 in exact arithmetic (their
+    CPU norm below 1e-6 of the largest; the card's must stay below 1e-3 of
+    it) and the 0-d logit parameters', which must agree
+    within 2e-2 relative to the larger of their CPU gradient and that
+    gradient's terms before they cancel (``logit_grad_terms``); after two
+    steps or more every trainable parameter and EMA tensor with cosine >=
+    0.99 where it was not zero at the start (the update's own cosine is
+    reported), and the card's parameters and EMA within 1e-6 + 1e-5 |x| of
+    its optimizer replayed on the CPU from the card's own gradients.
+    Returns the card's kernel launches over its steps too."""
+    from mae_clip_torch.models import CLIPModel, DistilBertConfig
     from mae_clip_torch.ops.masking import MaskingResult, random_masking
     from mae_clip_torch.train import (TrainState, make_optimizer,
                                       make_train_step)
+    from mae_clip_torch.train.loop import _forward, _update
 
     b = 8
-    card = build_train_model(b, "bfloat16", "cuda", seed=1, dropout=0.0,
-                             fused_blocks=fused_blocks)
+    text_config = DistilBertConfig(dropout=0.0, attention_dropout=0.0)
+    card = build_train_model(b, "bfloat16", "cuda", seed=1, preset=preset,
+                             text_config=text_config, dropout=0.0,
+                             fused_blocks=fused_blocks, **overrides)
     cpu = CLIPModel(card.cfg.replace(compute_dtype="float32"),
                     card.text_config, card.vit_config, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
     vcfg = card.image_encoder.config
-    masking = random_masking(b, vcfg.num_patches, card.cfg.mae.mask_ratio,
-                             torch.Generator().manual_seed(3))
-    batch = {"image": torch.from_numpy(rng.integers(
-                 0, 256, (b, vcfg.num_patches, vcfg.patch_size ** 2 * 3),
-                 np.uint8)),
-             "text_features": torch.from_numpy(rng.normal(
-                 size=(b, card.text_config.dim)).astype(np.float32)),
-             "valid": torch.ones(b, dtype=torch.bool)}
-    metrics, grads = [], []
+    batches, maskings = [], []
+    for i in range(steps):
+        maskings.append(random_masking(
+            b, vcfg.num_patches, card.cfg.mae.mask_ratio,
+            torch.Generator().manual_seed(3 + i)))
+        batch = {"image": torch.from_numpy(rng.integers(
+                     0, 256, (b, vcfg.num_patches, vcfg.patch_size ** 2 * 3),
+                     np.uint8)),
+                 "valid": torch.ones(b, dtype=torch.bool)}
+        if tokens:
+            batch["input_ids"] = torch.from_numpy(rng.integers(
+                0, card.text_config.vocab_size, (b, TRAIN_SEQ)))
+            batch["attention_mask"] = _padding_mask(
+                torch.Generator().manual_seed(5 + i), b, TRAIN_SEQ,
+                "cpu").long()
+        else:
+            batch["text_features"] = torch.from_numpy(rng.normal(
+                size=(b, card.text_config.dim)).astype(np.float32))
+        batches.append(batch)
+    before = {n: p.detach().float().cpu().clone()
+              for n, p in card.named_parameters() if p.requires_grad}
+    replay = None
+    if steps > 1:   # the card's optimizer, replayed on the CPU
+        replay = CLIPModel(cpu.cfg, card.text_config, card.vit_config,
+                           device="cpu")
+        replay.load_state_dict(cpu.state_dict())
+        replay_state = TrainState.create(
+            replay, make_optimizer(replay.cfg, replay))
+    metrics, grads, params, emas = [], [], [], []
     for model in (card, cpu):
         opt = make_optimizer(model.cfg, model)
         step = make_train_step(model, opt, model.cfg)
-        m = step(TrainState.create(model, opt), batch, masking=MaskingResult(
-            *(x.to(model.device) for x in masking)))
+        state = TrainState.create(model, opt)
+        counts = _reset_counts()
+        for batch, masking in zip(batches, maskings):
+            masking = MaskingResult(*(x.to(model.device) for x in masking))
+            if model is cpu:   # the last step's embeddings (dropout 0)
+                with torch.no_grad():
+                    out = _forward(model, batch, True, None, model.cfg,
+                                   masking)
+            m = step(state, batch, masking=masking)
+            if model is card and replay is not None:
+                live = dict(card.named_parameters())
+                for n, p in replay.named_parameters():
+                    if p.requires_grad:   # the card's clipped gradients
+                        p.grad = live[n].grad.float().cpu()
+                _update(replay_state, replay.cfg)
+        if model is card:
+            launches = _read_counts(counts)
         metrics.append({k: float(v) for k, v in m.items()})
         grads.append({n: p.grad.float().cpu()
                       for n, p in model.named_parameters() if p.requires_grad})
+        params.append({n: p.detach().float().cpu().clone()
+                       for n, p in model.named_parameters() if p.requires_grad})
+        emas.append({n: e.float().cpu().clone()
+                     for n, e in (state.ema or {}).items()})
     log(f"  metrics card bf16 {metrics[0]} vs CPU fp32 {metrics[1]}")
     for k, want in metrics[1].items():
         if abs(metrics[0][k] - want) > 2e-2 * abs(want):
             raise AssertionError(f"{k}: card {metrics[0][k]} vs CPU {want}")
-    cos = {n: float(torch.nn.functional.cosine_similarity(
-        g.flatten(), grads[1][n].flatten(), dim=0))
-        for n, g in grads[0].items()}
-    worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
-    log(f"  gradient cosine card vs CPU over {len(cos)} tensors: lowest "
-        f"{[(n, round(c, 5)) for n, c in worst]}")
-    if worst[0][1] < 0.99:
-        raise AssertionError(f"gradient cosine {worst[0]} < 0.99")
-    return dict(metrics=metrics, min_grad_cosine=worst[0][1])
+    terms = logit_grad_terms(cpu, out["image_embeddings"],
+                             out["text_embeddings"])
+    logit = {n: (float(g), float(grads[1][n]), terms[n])
+             for n, g in grads[0].items() if n.startswith("logit_")}
+    log(f"  logit gradients card vs CPU (and the CPU's terms before they "
+        f"cancel): {logit}")
+    for n, (got, want, total) in logit.items():
+        if abs(got - want) > 2e-2 * max(abs(want), total):
+            raise AssertionError(f"{n} gradient: card {got} vs CPU {want} "
+                                 f"(terms {total})")
+
+    def lowest(a: dict, b: dict, what: str, names=None) -> tuple:
+        cos = {n: float(torch.nn.functional.cosine_similarity(
+            x.flatten(), b[n].flatten(), dim=0))
+            for n, x in a.items()
+            if n not in logit and (names is None or n in names)}
+        worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+        log(f"  {what} cosine card vs CPU over {len(cos)} tensors: lowest "
+            f"{[(n, round(c, 5)) for n, c in worst]}")
+        return worst[0] if worst else (None, 1.0)
+
+    # A gradient that is 0 in exact arithmetic (the text tower's key
+    # biases: a constant per row of scores) is rounding on both sides; it
+    # is held by its size, not its direction.
+    big = max(float(g.norm()) for g in grads[1].values())
+    zero = {n for n, g in grads[1].items() if float(g.norm()) <= 1e-6 * big}
+    stray = {n: float(grads[0][n].norm()) for n in zero}
+    if stray:
+        log(f"  gradients 0 in exact arithmetic, card norms (limit "
+            f"{1e-3 * big:.3g}): {stray}")
+    if any(v > 1e-3 * big for v in stray.values()):
+        raise AssertionError(f"gradients that should be 0: {stray}")
+    worst = lowest(grads[0], grads[1], "gradient", set(grads[1]) - zero)
+    result = dict(metrics=metrics, min_grad_cosine=worst[1],
+                  logit_grads=logit, launches=launches,
+                  text_layers=card.text_config.n_layers)
+    checks = [worst]
+    if replay is not None:
+        # A tensor that starts at zero (the biases) is its own update after
+        # the steps, and the first Adam-family updates are sign-like, so
+        # bf16 turns some of their entries: those are held by the replay.
+        nonzero = {n for n, p in before.items() if bool(p.any())}
+        checks.append(lowest(params[0], params[1], "parameter", nonzero))
+        result["min_param_cosine"] = checks[-1][1]
+        if emas[0]:
+            checks.append(lowest(emas[0], emas[1], "EMA", nonzero))
+            result["min_ema_cosine"] = checks[-1][1]
+        result["min_update_cosine"] = lowest(
+            {n: p - before[n] for n, p in params[0].items()},
+            {n: p - before[n] for n, p in params[1].items()},
+            "update (reported, not held)")[1]
+        replayed = [(params[0], dict(replay.named_parameters()))]
+        if emas[0]:
+            replayed.append((emas[0], replay_state.ema))
+        err = max(float(((got[n] - want[n].detach()).abs()
+                         - 1e-5 * want[n].detach().abs()).max())
+                  for got, want in replayed for n in got)
+        log(f"  the card's parameters and EMA after {steps} steps against "
+            f"its optimizer replayed on the CPU from its gradients: largest "
+            f"|diff| - 1e-5 |ref| = {err:.3g} (limit 1e-6)")
+        result["replay_err"] = err
+        if err > 1e-6:
+            raise AssertionError(f"the card's optimizer against its CPU "
+                                 f"replay: {err}")
+    for name, c in checks:
+        if c < 0.99:
+            raise AssertionError(f"cosine of {name} {c} < 0.99")
+    return result
+
+
+def logit_grad_terms(model, img: torch.Tensor, txt: torch.Tensor) -> dict:
+    """For each 0-d logit parameter p of ``model``'s contrastive loss,
+    ``sum |dL/dz_ij * dz_ij/dp|`` over the logits z of the (B, B) pair
+    matrix: its gradient's terms before they cancel. At random weights the
+    pairs' cosines are ~0 either side of 0, so the scale's gradient is a
+    small rest of larger terms, and bf16 embeddings move it by a share of
+    those terms, not of itself. SigLIP: z = exp(s) c + b; the learnable
+    temperature (hard labels, all rows valid): z = c min(exp(s), 100)."""
+    cfg = model.cfg
+    img = torch.nn.functional.normalize(img.float(), dim=-1)
+    txt = torch.nn.functional.normalize(txt.float(), dim=-1)
+    b = img.shape[0]
+    eye = torch.eye(b)
+    if cfg.contrastive_loss == "siglip":
+        c = img @ txt.T
+        z = torch.exp(model.logit_scale.detach()) * c
+        labels = 2.0 * eye - 1.0
+        dz = -labels * torch.sigmoid(-labels * (z + model.logit_bias.detach()))
+        dz = dz / b
+        return {"logit_scale": float((dz * z).abs().sum()),
+                "logit_bias": float(dz.abs().sum())}
+    if cfg.learnable_temperature and cfg.contrastive_loss == "clip":
+        z = (txt @ img.T) * torch.clamp(
+            torch.exp(model.logit_scale.detach()), max=100.0)
+        dz = (torch.softmax(z, 1) - eye + (torch.softmax(z, 0) - eye)) / (2 * b)
+        return {"logit_scale": float((dz * z).abs().sum())}
+    return {}
+
+
+# ---------------------------------------------------------------------------
+# Phases 12-13: the SigLIP step and the other training options
+# ---------------------------------------------------------------------------
+
+# The second run of phase 12 and check (c) of phase 13.
+LAMB_OVERRIDES = dict(optimizer="lamb", lr_schedule="cosine", warmup_steps=2,
+                      decay_steps=100, grad_clip_norm=1.0, ema_decay=0.999)
+
+
+def train_siglip() -> tuple:
+    """Phase 12: ``flagship_siglip_config``'s step at batch 256, bf16, per
+    block, on phase 6's data: as the preset is (AdamW, constant lr), then
+    with ``LAMB_OVERRIDES``. Both launch 12 / 12 / 4 / 4 of #1 / #3 / #2 /
+    #4 a step. The LAMB run's loss is not required to fall in 10 steps: its
+    first update has lr 0 and LAMB moves each tensor by ~lr of its norm."""
+    launches, adamw = train_flagship(preset="flagship_siglip_config")
+    _, lamb = train_flagship(preset="flagship_siglip_config",
+                             require_fall=False, **LAMB_OVERRIDES)
+    a, b = adamw["stages"], lamb["stages"]
+    log(f"  optimizer stage per step, AdamW vs LAMB + cosine + clip + EMA: "
+        f"device {a['optimizer_device_ms']:.4f} vs "
+        f"{b['optimizer_device_ms']:.4f} ms, host "
+        f"{a['optimizer_host_ms']:.4f} vs {b['optimizer_host_ms']:.4f} ms, "
+        f"kernels {a['optimizer_launches']:.1f} vs "
+        f"{b['optimizer_launches']:.1f}")
+    for run in (adamw, lamb):
+        if run["logit_bias"] <= -10.0:
+            raise AssertionError(f"logit_bias did not rise from -10: "
+                                 f"{run['logit_bias']}")
+    adamw["lamb"] = lamb
+    return launches, adamw
+
+
+def check_siglip_options_against_cpu(rng: np.random.Generator) -> dict:
+    """Phase 13: card (bf16, kernels) against CPU (fp32, plain versions),
+    B=8, full width, dropout 0, with phase 7's limits: (a) SigLIP; (b) the
+    hard-label loss with the learnable temperature; (c) (a) with
+    ``LAMB_OVERRIDES`` over two steps; (d) a trained text tower on tokens
+    with padding masks, which runs #2 / #4 (6 layers, plus the decoder's
+    4). Then one step on the card with attention dropout 0.1, whose text
+    tower takes the plain route and launches neither."""
+    from mae_clip_torch.train import (TrainState, make_optimizer,
+                                      make_train_step)
+
+    out = {}
+    log("  (a) SigLIP, one step")
+    out["siglip"] = check_train_step_against_cpu(
+        rng, preset="flagship_siglip_config")
+    log("  (b) hard-label loss, learnable temperature, one step")
+    out["clip_learnable_temperature"] = check_train_step_against_cpu(
+        rng, contrastive_loss="clip", learnable_temperature=True)
+    log("  (c) SigLIP with LAMB, cosine, clipping and EMA, two steps")
+    out["siglip_lamb_ema"] = check_train_step_against_cpu(
+        rng, preset="flagship_siglip_config", steps=2, **LAMB_OVERRIDES)
+    log("  (d) trained text tower on tokens (S=64, padding masks), attention "
+        "dropout 0, one step")
+    out["text_trained"] = check_train_step_against_cpu(
+        rng, tokens=True, text_trainable=True)
+    launched = out["text_trained"]["launches"]
+    flash = {k: launched[k]
+             for k in ("flash_attention", "flash_attention_bwd")}
+    want = (out["text_trained"]["text_layers"]
+            + LAUNCHES_PER_STEP["flash_attention"])
+    if flash != {"flash_attention": want, "flash_attention_bwd": want}:
+        raise AssertionError(f"trained text tower: #2 / #4 launches {flash}, "
+                             f"expected {want} each")
+
+    model = build_train_model(8, "bfloat16", "cuda", seed=1,
+                              text_trainable=True)
+    opt = make_optimizer(model.cfg, model)
+    vcfg = model.image_encoder.config
+    batch = {"image": torch.from_numpy(rng.integers(
+                 0, 256, (8, vcfg.num_patches, vcfg.patch_size ** 2 * 3),
+                 np.uint8)),
+             "input_ids": torch.from_numpy(rng.integers(
+                 0, model.text_config.vocab_size, (8, TRAIN_SEQ))),
+             "attention_mask": _padding_mask(
+                 torch.Generator().manual_seed(9), 8, TRAIN_SEQ,
+                 "cpu").long()}
+    counts = _reset_counts()
+    loss = float(make_train_step(model, opt, model.cfg)(
+        TrainState.create(model, opt), batch)["loss"])
+    dropped = {k: v for k, v in _read_counts(counts).items()
+               if k.startswith("flash")}
+    log(f"  attention dropout 0.1: loss {loss:.6f}, #2 / #4 launches "
+        f"{dropped} (the decoder's alone)")
+    if not math.isfinite(loss):
+        raise AssertionError(f"non-finite loss with attention dropout: {loss}")
+    if set(dropped.values()) != {LAUNCHES_PER_STEP["flash_attention"]}:
+        raise AssertionError(f"the text tower launched #2 / #4 with "
+                             f"attention dropout: {dropped}")
+    out["attention_dropout"] = dict(loss=loss, launches=dropped)
+    return out
 
 
 def check_fused_serving_tower(rng: np.random.Generator) -> float:
@@ -2423,6 +2706,19 @@ def main() -> int:
         f"{train['peak_memory_gb']:.3f}); lowest gradient cosine card vs CPU "
         f"{fused['against_cpu']['min_grad_cosine']:.5f} (limit 0.99)")
 
+    log("phase 12: flagship_siglip_config's training step (B=256, bf16, "
+        "per block), as the preset is, then with LAMB, cosine, clipping "
+        "and EMA")
+    t_phase = time.perf_counter()
+    siglip_launches, siglip = train_siglip()
+    log(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    log("phase 13: card vs CPU with the other training options (B=8, full "
+        "width): SigLIP, hard labels + learnable temperature, LAMB + cosine "
+        "+ clip + EMA, a trained text tower; attention dropout on the card")
+    t_phase = time.perf_counter()
+    siglip["against_cpu"] = check_siglip_options_against_cpu(rng)
+    log(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
     log("phase 5: kernel times (serving, training, pretraining shapes, the "
         "block stacks' GEMM products, then "
         "the block stacks)")
@@ -2437,11 +2733,13 @@ def main() -> int:
     log(f"end to end: pretraining {json.dumps(pretrain)}")
     log(f"end to end: training, fused_blocks='on' {json.dumps(fused)}")
     log(f"end to end: training, fused_blocks='fwd' {json.dumps(fused_fwd)}")
+    log(f"end to end: training, SigLIP {json.dumps(siglip)}")
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"serving": served, "training": launches,
                "pretraining": pre_launches, "training_fused": fused_launches,
-               "training_fused_fwd": fwd_launches}
+               "training_fused_fwd": fwd_launches,
+               "training_siglip": siglip_launches}
     kernels = []
     for name, (replaces, source) in KERNELS.items():
         extra = {}

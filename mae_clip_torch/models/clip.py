@@ -5,10 +5,12 @@ ProjectionHead(768 -> projection_dim). With MAE enabled the image tower is a
 ``MAEViT``: ``forward`` runs its masked pass (and, with
 ``clip_from_masked=False``, a separate full pass for the contrastive
 features), ``encode_image`` its full pass. ``forward`` returns the
-embeddings and the losses (soft-target InfoNCE, norm-pix MAE). The SigLIP
-(``logit_scale`` + ``logit_bias``) and learnable-temperature
-(``logit_scale``) parameters are created as in the JAX package; their losses
-and the ResNet50 tower are not ported yet.
+embeddings and the losses: the contrastive loss ``cfg.contrastive_loss``
+selects (soft-target InfoNCE, the hard-label CLIP loss or SigLIP) and the
+norm-pix MAE loss. The SigLIP (``logit_scale`` + ``logit_bias``) and
+learnable-temperature (``logit_scale``) parameters are created as in the
+JAX package and trained in the "logit" group. The ResNet50 tower is not
+ported yet.
 
 A frozen tower (``trainable`` / ``text_trainable`` False) has
 ``requires_grad`` off, and with ``frozen_text_eval_mode`` the text tower
@@ -180,7 +182,8 @@ class CLIPModel(nn.Module):
                "text_embeddings": self.text_projection(text_features)}
         if compute_contrastive:
             out["clip_loss"] = out["loss"] = losses_lib.contrastive_loss_fn(
-                cfg)(out["image_embeddings"], out["text_embeddings"], valid)
+                cfg)(out["image_embeddings"], out["text_embeddings"], valid,
+                     losses_lib.loss_extras(self))
         if mae_out is not None:
             mae_mask = mae_out.mask
             if valid is not None:

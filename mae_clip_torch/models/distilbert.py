@@ -10,7 +10,9 @@ card that is the flash CUDA kernel, which reads q/k/v as strided head views of
 the linear outputs and writes its context in the layout ``out_lin`` reads, so
 the head split and merge copy nothing. Its masked keys get ``-0.7 * f32max``
 where HF writes ``finfo.min``: the softmax is the same whenever a row has a
-valid key. Attention-probability dropout (train mode) is not ported.
+valid key. In train mode with ``attention_dropout > 0`` (HF's default 0.1)
+attention takes the plain route with dropout on the softmaxed weights
+instead, as the JAX package sends that case to ``attention_xla``.
 """
 
 from __future__ import annotations
@@ -67,9 +69,6 @@ class MultiHeadSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor,
                 key_valid: Optional[torch.Tensor]) -> torch.Tensor:
         c = self.config
-        if self.training and c.attention_dropout > 0.0:
-            raise NotImplementedError(
-                "train-mode attention dropout is not ported yet")
         b, s, _ = x.shape
         dh = c.dim // c.n_heads
 
@@ -78,7 +77,9 @@ class MultiHeadSelfAttention(nn.Module):
 
         ctx = multi_head_attention(split(self.q_lin(x)), split(self.k_lin(x)),
                                    split(self.v_lin(x)), key_valid,
-                                   sm_scale=1.0 / dh ** 0.5)
+                                   sm_scale=1.0 / dh ** 0.5,
+                                   dropout_rate=(c.attention_dropout
+                                                 if self.training else 0.0))
         return self.out_lin(ctx.transpose(1, 2).reshape(b, s, c.dim))
 
 

@@ -6,7 +6,8 @@ key mask, or the packed ``(B, S, 3*H*Dh)`` output of a fused qkv matmul
 (columns ordered as ``reshape(B, S, 3, H, Dh)``).
 
 * ``attention_ref``: HF DistilBERT masking semantics (invalid-key scores
-  replaced by ``finfo(float32).min``, softmax in fp32).
+  replaced by ``finfo(float32).min``, softmax in fp32), with optional
+  inverted dropout on the softmaxed weights (JAX's ``attention_xla``).
 * ``flash_attention_ref`` / ``qkv_packed_attention_ref`` and
   ``flash_attention_bwd_ref`` / ``qkv_packed_attention_bwd_ref``: the plain
   versions of the four kernels, with the kernels' own semantics (masked keys
@@ -33,7 +34,10 @@ key mask, or the packed ``(B, S, 3*H*Dh)`` output of a fused qkv matmul
   wrapper counts its kernel launches in ``<wrapper>.launches`` (forward) and
   ``<wrapper>.bwd_launches``.
 * ``fused_qkv_attention`` / ``multi_head_attention``: the dispatchers the
-  models call. There is no ``impl`` switch: the device of the input decides.
+  models call. There is no ``impl`` switch: the device of the input
+  decides. Attention dropout (``dropout_rate > 0``, the text tower in
+  train mode) takes ``attention_ref`` on every device, as JAX sends it to
+  ``attention_xla``: the kernels never hold the weights it drops.
 
 A fully masked row gets uniform weights over its Sk keys and no gradient
 into q or k, as JAX's ``attention_xla`` gives. (The JAX package's Pallas
@@ -49,6 +53,7 @@ import threading
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_HEAD_DIM = 256  # heads above 128 take the kernels' scalar bodies
@@ -66,15 +71,27 @@ def _scale(d: int, sm_scale: Optional[float]) -> float:
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   key_valid: Optional[torch.Tensor] = None,
-                  sm_scale: Optional[float] = None) -> torch.Tensor:
+                  sm_scale: Optional[float] = None,
+                  dropout_rate: float = 0.0,
+                  keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """HF DistilBERT attention: q scaled before the product, invalid-key
-    scores replaced by the fp32 minimum, softmax in fp32."""
+    scores replaced by the fp32 minimum, softmax in fp32. With
+    ``dropout_rate > 0`` the softmaxed weights get inverted dropout (HF's
+    train-mode ``attention_dropout``): kept where ``keep`` (B, H, Sq, Sk)
+    is true and divided by ``1 - dropout_rate``; without ``keep`` the mask
+    comes from torch's RNG (``F.dropout``)."""
     scale = _scale(q.shape[-1], sm_scale)
     scores = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
     if key_valid is not None:
         scores = scores.masked_fill(~key_valid.bool()[:, None, None, :],
                                     torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1)
+    if dropout_rate > 0.0:
+        if keep is None:
+            probs = F.dropout(probs, dropout_rate)
+        else:
+            probs = torch.where(keep, probs / (1.0 - dropout_rate),
+                                torch.zeros_like(probs))
     return torch.matmul(probs.to(q.dtype), v)
 
 
@@ -516,6 +533,11 @@ def fused_qkv_attention(qkv: torch.Tensor, n_heads: int,
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          key_valid: Optional[torch.Tensor] = None,
-                         sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Attention over separate q/k/v (B, H, S, Dh) -> (B, H, Sq, Dh)."""
+                         sm_scale: Optional[float] = None,
+                         dropout_rate: float = 0.0) -> torch.Tensor:
+    """Attention over separate q/k/v (B, H, S, Dh) -> (B, H, Sq, Dh): the
+    flash kernel, or ``attention_ref`` with dropout when ``dropout_rate >
+    0``."""
+    if dropout_rate > 0.0:
+        return attention_ref(q, k, v, key_valid, sm_scale, dropout_rate)
     return flash_attention(q, k, v, key_valid, sm_scale)

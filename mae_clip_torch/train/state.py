@@ -7,13 +7,19 @@ draws the training steps' MAE masks and crops, on the model's device. An
 eval step draws from a generator of its own, seeded from the seed and the
 step (``eval_generator``), as the JAX eval step folds the step into the
 state's key: two evals at one state agree, and an eval leaves the training
-stream alone. EMA parameters are not ported.
+stream alone.
+
+With ``cfg.ema_decay > 0`` the state also keeps ``ema``: an fp32 copy of
+each trainable parameter by name, on the model's device, equal to the
+parameters at creation (as JAX's ``ema_params``). ``update_ema`` moves it
+towards the live parameters after each update; frozen parameters are
+neither copied nor averaged (an eval on the EMA weights reads them live).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -29,6 +35,9 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
     seed: int = 0
+    ema: Optional[Dict[str, torch.Tensor]] = None
+    _ema_live: List[torch.Tensor] = dataclasses.field(default_factory=list,
+                                                      repr=False)
 
     @classmethod
     def create(cls, model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -36,16 +45,35 @@ class TrainState:
         """``cfg`` defaults to ``model.cfg`` (a ``CLIPModel``'s); a
         standalone ``MAEViT`` has none and is passed its config here."""
         cfg = model.cfg if cfg is None else cfg
-        if cfg.ema_decay > 0:
-            raise NotImplementedError("ema_decay > 0: EMA parameters are "
-                                      "not ported")
         if cfg.remat:
             raise NotImplementedError("remat=True: recomputing the tower "
                                       "blocks in the backward is not ported")
         device = next(model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(seed)
-        return cls(step=0, model=model, optimizer=optimizer,
-                   generator=generator, seed=seed)
+        state = cls(step=0, model=model, optimizer=optimizer,
+                    generator=generator, seed=seed)
+        if cfg.ema_decay > 0:
+            trainable = [(n, p) for n, p in model.named_parameters()
+                         if p.requires_grad]
+            # The port keeps fp32 parameters, so the copy is fp32.
+            state.ema = {n: p.detach().clone() for n, p in trainable}
+            state._ema_live = [p for _, p in trainable]
+        return state
+
+    @torch.no_grad()
+    def update_ema(self, decay: float) -> None:
+        """``e <- decay * e + (1 - decay) * p`` for every EMA tensor, from
+        the live parameters, in one multi-tensor lerp."""
+        torch._foreach_lerp_(list(self.ema.values()), self._ema_live,
+                             1.0 - decay)
+
+    def eval_params(self, cfg: Config) -> Optional[Dict[str, torch.Tensor]]:
+        """The weights an eval runs on in place of the live ones: the EMA
+        with ``cfg.ema_decay > 0 and cfg.ema_eval``, else None (the live
+        parameters)."""
+        if cfg.ema_decay > 0 and cfg.ema_eval and self.ema is not None:
+            return self.ema
+        return None
 
     def eval_generator(self) -> torch.Generator:
         """A fresh generator on the model's device, seeded from ``seed`` and

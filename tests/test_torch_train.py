@@ -148,11 +148,15 @@ def setup():
 
 @pytest.fixture(scope="module")
 def grad_fn(setup):
-    """jax.grad of the JAX loss (its train step's), compiled once."""
+    """jax.grad of the JAX loss (its train step's), with the forward's
+    outputs: ``(grads, outputs)``, compiled once for the flagship batch."""
     jmodel = setup[2]
-    return jax.jit(jax.grad(
-        lambda p, batch, masking: _jax_forward(jmodel, p, batch,
-                                               masking)["loss"]))
+
+    def loss(p, batch, masking):
+        out = _jax_forward(jmodel, p, batch, masking)
+        return out["loss"], out
+
+    return jax.jit(jax.grad(loss, has_aux=True))
 
 
 def _jax_forward(jmodel, params, batch, masking):
@@ -176,9 +180,9 @@ def test_clip_soft_ce_loss_matches_jax():
     valid = np.array([True, True, False, True, True])
     for v in (None, valid):
         jv = None if v is None else jnp.asarray(v)
-        want, want_g = jax.value_and_grad(
+        want, want_g = jax.jit(jax.value_and_grad(
             lambda a, b: jax_losses.clip_soft_ce_loss(a, b, 0.7, jv),
-            argnums=(0, 1))(jnp.asarray(img), jnp.asarray(txt))
+            argnums=(0, 1)))(jnp.asarray(img), jnp.asarray(txt))
         ti, tt = (torch.from_numpy(x).requires_grad_() for x in (img, txt))
         got = torch_losses.clip_soft_ce_loss(
             ti, tt, 0.7, None if v is None else torch.from_numpy(v))
@@ -254,12 +258,13 @@ def test_random_masking_defaults_to_the_card():
 
 @pytest.mark.parametrize("cached,from_masked", [(True, True),
                                                 (False, False)])
-def test_clip_forward_train_matches_jax(setup, cached, from_masked):
+def test_clip_forward_train_matches_jax(setup, grad_fn, cached,
+                                       from_masked):
     """CLIPModel.forward(train=True): embeddings and losses, cached or inline
     (frozen) text, contrastive features from the masked or the full pass;
     and, in the flagship case (cached text, masked pass), MAEViT.forward
     (the masked pass + CrossMAE decoder) on its own. JAX's mask indices feed
-    both sides."""
+    both sides; the flagship case's JAX forward is ``grad_fn``'s."""
     _, _, jmodel, params = setup
     jcfg, tcfg = _configs(mae=dict(clip_from_masked=from_masked))
     jm = jmodel.clone(cfg=jcfg)
@@ -268,16 +273,15 @@ def test_clip_forward_train_matches_jax(setup, cached, from_masked):
     patches = np.random.default_rng(3).normal(
         size=(B, N_PATCHES, 192)).astype(np.float32)
 
-    def jax_side(p):
-        if not cached:
-            return _jax_forward(jm, p, batch, masking), ()
-        mae = jm.apply({"params": p}, jnp.asarray(patches), None,
-                       masking=masking,
-                       method=lambda mod, x, r, masking: mod.image_encoder(
-                           x, r, masking=masking))
-        return _jax_forward(jm, p, batch, masking), mae
-
-    want, want_mae = jax.jit(jax_side)(params)
+    if cached:
+        want = grad_fn(params, batch, masking)[1]
+        want_mae = jax.jit(lambda p: jm.apply(
+            {"params": p}, jnp.asarray(patches), None, masking=masking,
+            method=lambda mod, x, r, masking: mod.image_encoder(
+                x, r, masking=masking)))(params)
+    else:
+        want = jax.jit(lambda p: _jax_forward(jm, p, batch, masking))(params)
+        want_mae = ()
     tmodel = _torch_model(tcfg, params)
     with torch.no_grad():
         got = tmodel(_prepped(_torch_batch(batch), tcfg), train=True,
@@ -308,7 +312,8 @@ def test_every_trainable_grad_matches_jax(setup, grad_fn):
     batch = _batch(7)
     masking = _jax_masking(jax.random.PRNGKey(7), 0)
     want = state_dict_from_flax(
-        jax.tree_util.tree_map(np.asarray, grad_fn(params, batch, masking)),
+        jax.tree_util.tree_map(np.asarray,
+                               grad_fn(params, batch, masking)[0]),
         tcfg, DistilBertConfig(**TEXT), ViTConfig(**VIT))
     tmodel = _torch_model(tcfg, params)
     tmodel(_prepped(_torch_batch(batch), tcfg), train=True,
@@ -328,11 +333,16 @@ def test_every_trainable_grad_matches_jax(setup, grad_fn):
 # The train step, the eval step, the text cache
 # ---------------------------------------------------------------------------
 
-def _assert_params_match(tmodel, jparams, small, tcfg, steps):
-    """``small``: where a step's gradient was below 1e-6 in magnitude."""
+def _assert_params_match(tmodel, jparams, small, tcfg, steps, got=None):
+    """``small``: where a step's gradient was below 1e-6 in magnitude.
+    ``got``: tensors by name to hold against the JAX tree's (default the
+    model's state dict, every name)."""
     want = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jparams),
                                 tcfg, tmodel.text_config, tmodel.vit_config)
-    got = tmodel.state_dict()
+    if got is None:
+        got = tmodel.state_dict()
+    else:
+        want = {name: want[name] for name in got}
     for name, w in want.items():
         atol = torch.where(small.get(name, torch.tensor(False)),
                            2 * tcfg.lr * steps, 1e-6)
@@ -375,6 +385,63 @@ def test_train_steps_match_jax(setup):
         _assert_params_match(tmodel, jstate.params, small, tcfg, i + 1)
     for k, v in text_before.items():
         assert torch.equal(tmodel.state_dict()[k], v), k
+
+
+def test_siglip_lamb_cosine_clip_ema_steps_match_jax(setup):
+    """Two steps of make_train_step with SigLIP (the logit scale and bias
+    trained), LAMB, the cosine schedule (warmup 2: lr 0, then half the
+    peak), clipping (active: the gradient norm is above 0.05) and EMA
+    against JAX's jitted step: the metrics, every parameter and the EMA of
+    every trainable one after each step. Then make_eval_step on the EMA
+    weights against JAX's, and the live weights left as they were. The
+    JAX model takes its XLA attention here (the kernels' parity is the
+    other tests'), which traces and compiles in a fraction of the time."""
+    jcfg, tcfg = _configs(contrastive_loss="siglip", optimizer="lamb",
+                          lr_schedule="cosine", warmup_steps=2,
+                          decay_steps=10, grad_clip_norm=0.05,
+                          ema_decay=0.9, mae=dict(decoder_attn_impl="xla"))
+    jmodel = setup[2].clone(cfg=jcfg, attn_impl="xla", attn_interpret=False)
+    params = _with_logit(setup[3])
+    tx = jax_optim.make_optimizer(jcfg, params)
+    rng0 = jax.random.PRNGKey(4)
+    jstate = JaxTrainState.create(jax.tree_util.tree_map(jnp.array, params),
+                                  tx, jax.random.PRNGKey(4), ema=True)
+    jstep = jax_loop.make_train_step(jmodel, tx, jcfg)
+    tmodel = _torch_model(tcfg, params)
+    opt = make_optimizer(tcfg, tmodel)
+    state = TrainState.create(tmodel, opt)
+    step = make_train_step(tmodel, opt, tcfg)
+    small = {}
+    for i, batch in enumerate([_batch(13), _batch(14)]):
+        masking = _jax_masking(rng0, i)
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
+        tm = step(state, _torch_batch(batch), masking=_torch_masking(masking))
+        grads = [p.grad for p in tmodel.parameters() if p.grad is not None]
+        for name, p in tmodel.named_parameters():   # clipped gradients
+            if p.grad is not None:
+                small[name] = small.get(name, False) | (p.grad.abs() < 1e-6)
+        for k in jm:
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), **TOL,
+                                       err_msg=k)
+        _assert_params_match(tmodel, jstate.params, small, tcfg, i + 1)
+        _assert_params_match(tmodel, jstate.ema_params, small, tcfg, i + 1,
+                             got=state.ema)
+    assert float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in grads]))) == pytest.approx(
+            0.05, rel=1e-4)                              # clipped
+    assert float(tmodel.logit_bias.detach()) != -10.0
+    batch = _batch(15)
+    live = {k: v.clone() for k, v in tmodel.state_dict().items()}
+    want = jax_loop.make_eval_step(jmodel, jcfg)(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    got = make_eval_step(tmodel, tcfg)(state, _torch_batch(batch),
+                                       masking=_torch_masking(
+                                           _jax_masking(rng0, 2)))
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), **TOL,
+                                   err_msg=k)
+    assert all(torch.equal(v, live[k]) for k, v in tmodel.state_dict().items())
 
 
 def test_eval_step_matches_jax(setup):
@@ -452,26 +519,21 @@ def _with_logit(params):
 
 
 def test_unported_options_raise(setup):
+    """What is still not ported raises: the chunked loss, GradCache
+    accumulation, remat, the ResNet50 tower."""
     _, tcfg, _, params = setup
     tmodel = _torch_model(tcfg, params)
-    for kw in (dict(optimizer="lamb"), dict(optimizer="lion"),
-               dict(lr_schedule="cosine", decay_steps=10),
-               dict(grad_clip_norm=1.0)):
-        with pytest.raises(NotImplementedError):
-            make_optimizer(tcfg.replace(**kw), tmodel)
     opt = make_optimizer(tcfg, tmodel)
-    for kw in (dict(contrastive_loss="siglip"),
-               dict(contrastive_loss="clip"),
-               dict(learnable_temperature=True),
-               dict(loss_chunk_size=4)):
-        with pytest.raises(NotImplementedError):
-            make_train_step(tmodel, opt, tcfg.replace(**kw))
+    with pytest.raises(NotImplementedError):
+        make_train_step(tmodel, opt, tcfg.replace(loss_chunk_size=4))
     with pytest.raises(NotImplementedError):
         make_train_step(tmodel, opt, tcfg, accum_steps=2)
-    for kw in (dict(ema_decay=0.99), dict(remat=True)):
-        tmodel.cfg = tcfg.replace(**kw)
-        with pytest.raises(NotImplementedError):
-            TrainState.create(tmodel, opt)
+    tmodel.cfg = tcfg.replace(remat=True)
+    with pytest.raises(NotImplementedError):
+        TrainState.create(tmodel, opt)
+    with pytest.raises(NotImplementedError):
+        CLIPModel(tcfg.replace(model_name="resnet50",
+                               mae=torch_config.MAEConfig()), device="cpu")
     tmodel.cfg = tcfg
     state = TrainState.create(tmodel, opt)
     # uint8 sources at another size than cfg.size are now cropped in the
@@ -484,3 +546,50 @@ def test_unported_options_raise(setup):
         precompute_text_features(
             _torch_model(tcfg.replace(frozen_text_eval_mode=False), params),
             None)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(optimizer="lamb"), dict(optimizer="lion"),
+    dict(lr_schedule="cosine", warmup_steps=1, decay_steps=10),
+    dict(grad_clip_norm=1.0),
+    dict(contrastive_loss="siglip"),
+    dict(contrastive_loss="clip"),
+    dict(contrastive_loss="clip", learnable_temperature=True),
+    dict(learnable_temperature=True),
+    dict(ema_decay=0.99), dict(ema_decay=0.99, ema_eval=False),
+    dict(text_trainable=True),   # attention_dropout 0.1 in train mode
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_ported_options_run(kw):
+    """Each option that raised before this slice runs a train step and an
+    eval step with finite metrics. A trained text tower reads tokens with a
+    padding mask, its attention dropout on. The learnable temperature's
+    scale starts above log(100) and is clamped after the update; with
+    ema_eval the eval reads the EMA (a live weight set to NaN leaves it
+    finite), without it the live weights."""
+    _, tcfg = _configs(**kw)
+    model = CLIPModel(tcfg, DistilBertConfig(**TEXT), ViTConfig(**VIT),
+                      device="cpu").init_weights(torch.Generator()
+                                                 .manual_seed(0))
+    if tcfg.learnable_temperature:
+        with torch.no_grad():
+            model.logit_scale.fill_(5.0)
+    opt = make_optimizer(tcfg, model)
+    state = TrainState.create(model, opt)
+    batch = _torch_batch(_batch(12, cached=not tcfg.text_trainable))
+    metrics = make_train_step(model, opt, tcfg)(state, batch)
+    assert state.step == 1
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    if tcfg.learnable_temperature:
+        assert float(model.logit_scale.detach()) == pytest.approx(np.log(100.0))
+    if tcfg.text_trainable:
+        assert model.text_encoder.model.embeddings.word_embeddings \
+            .weight.grad is not None
+    assert (state.ema is not None) == (tcfg.ema_decay > 0)
+    if state.ema is not None:
+        assert set(state.ema) == {n for n, p in model.named_parameters()
+                                  if p.requires_grad}
+        with torch.no_grad():
+            model.image_projection.fc.weight.fill_(float("nan"))
+    evaluated = make_eval_step(model, tcfg)(state, batch)
+    finite = all(bool(torch.isfinite(v)) for v in evaluated.values())
+    assert finite == (tcfg.ema_decay == 0 or tcfg.ema_eval)
