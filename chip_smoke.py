@@ -45,9 +45,21 @@ kernels' launch counts set to 0 just before and read just after:
   EMA over two steps (the card's optimizer also replayed on the CPU from
   its own gradients) and a trained text tower on tokens with padding
   masks (#2 / #4 in the text tower), and one step with attention dropout
-  on the card, whose text tower takes the plain attention.
+  on the card, whose text tower takes the plain attention;
+* the 32k-batch recipe: ``large_batch_mesh_config`` as the preset is, at
+  batch 32,768 (GradCache over 8 microbatches of 4,096, the chunked
+  soft-target loss at 4,096 columns, LAMB, per-block remat of the
+  encoder, the MAE-paper decoder), checked for exact launches per step
+  (#1 with the encoder's recompute), finite losses and moving weights,
+  with its step time, busy share, stages and peak memory, and one
+  microbatch's pass 2 with remat and without; then the chunked losses
+  against the unchunked ones at 16,384 rows with their peak memory,
+  GradCache against the one-pass step on the card, #1 giving the same
+  bits twice (what remat's recompute needs), and the card's GradCache
+  step against the CPU's one pass over the batch.
 
-Last, it times each kernel at the training and pretraining shapes beside
+Last, it times each kernel at the training and pretraining shapes (and
+#1 / #3 at the 32k recipe's encoder, 6 heads of 64) beside
 its bound, its plain version and the PyTorch call that computes the same
 thing (for the block stacks, which no single call computes, the port's own
 per-block path on the same weights), and each of the stacks' bf16 products
@@ -63,12 +75,14 @@ printing no result, when no CUDA card is present.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -411,6 +425,68 @@ def check_backward_kernels(worst: dict) -> None:
             check("flash_attention_bwd", label + " vs the lse plain", got,
                   A.flash_attention_bwd_lse_ref(*plain, kv, None, out.float(),
                                                 lse, g.float()), dt)
+
+
+# (B, S, H, Dh) of the 32k recipe's microbatch of 4,096 (phase 14): the
+# ViT-S/16 encoder's 6 heads of 64 and the MAE-paper decoder's 2 of 128.
+LARGE_BATCH_ATTENTION = ((4096, 50, 6, 64), (4096, 197, 2, 128))
+
+
+def check_large_batch_attention(worst: dict,
+                                shapes=LARGE_BATCH_ATTENTION) -> None:
+    """#1 and #3 in bf16 at the large-batch path's shapes (B*H up to
+    24,576 blocks in y), inputs made on the card: #1 without lse (pass 1)
+    against the plain forward, with lse twice on the same qkv (remat
+    recomputes a block and #3 reads the recomputed out and lse against
+    gradients from the first forward, so the two must be the same bits),
+    out and lse against the plain (out, lse) forward; #3 from that out and
+    lse against both plain backwards, at ``_bwd_close``'s limit."""
+    from mae_clip_torch.ops import attention as A
+
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    for b, s, h, d in shapes:
+        qkv, g = (torch.randn(b, s, n * h * d, device=DEVICE, generator=gen,
+                              dtype=torch.bfloat16) for n in (3, 1))
+        label = f"({b},{s},{3 * h * d}) {h} heads of {d} bf16"
+        plain, plain_lse = A.qkv_packed_attention_lse_ref(qkv.float(), None, h)
+        first = A._launch_packed(qkv, None, h, d ** -0.5, with_lse=True)
+        again = A._launch_packed(qkv, None, h, d ** -0.5, with_lse=True)
+        no_lse = A._launch_packed(qkv, None, h, d ** -0.5)[0]
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(first, again))
+        log(f"  #1 with lse twice at {label}: the same bits {same}")
+        if not same:
+            raise AssertionError(f"#1 is not deterministic at {label}")
+        errs = [_close(f"qkv_packed_attention {label}", no_lse, plain,
+                       BF16_ATOL),
+                _close(f"qkv_packed_attention lse path {label}", first[0],
+                       plain, BF16_ATOL)]
+        lse_err = _close(f"qkv_packed_attention lse {label}", first[1],
+                         plain_lse, **FP32_TOL)
+        worst["qkv_packed_attention"] = max(worst["qkv_packed_attention"],
+                                            *errs)
+        log(f"  qkv_packed_attention {label}: max abs err out {errs[0]:.3e}, "
+            f"with lse {errs[1]:.3e}, lse {lse_err:.3e}")
+        del plain, plain_lse, again, no_lse
+        out, lse = first
+        got = A._launch_packed_bwd(qkv, None, h, d ** -0.5, out, lse, g)
+        torch.cuda.synchronize()
+        for what, want in (
+                ("", A.qkv_packed_attention_bwd_ref(qkv.float(), None, h,
+                                                    None, g.float())),
+                (" vs the lse plain", A.qkv_packed_attention_bwd_lse_ref(
+                    qkv.float(), None, h, None, out.float(), lse,
+                    g.float()))):
+            err = _bwd_close(f"qkv_packed_attention_bwd {label}{what}", got,
+                             want, torch.bfloat16)
+            worst["qkv_packed_attention_bwd"] = max(
+                worst.get("qkv_packed_attention_bwd", 0.0), err)
+            log(f"  qkv_packed_attention_bwd {label}{what}: max abs err "
+                f"{err:.3e} (max |plain| {float(want.abs().max()):.3e})")
+            del want
+        del qkv, g, first, out, lse, got
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # The MAE-pretrain step's masked patch embedding: (B, N, Din) patches,
@@ -1143,6 +1219,21 @@ def time_wide_heads() -> dict:
     qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(DEVICE, dt)
     g = torch.randn(b, s, h * d, generator=gen).to(DEVICE, dt)
     out.update(_time_packed(qkv, g, h, repeats=3, d=d))
+    _log_times(out)
+    return out
+
+
+def time_large_batch_kernels() -> dict:
+    """#1 and #3 at ``large_batch_mesh_config``'s encoder (phase 14): one
+    microbatch of 4,096 at S=50 with the canonical 6 heads of 64, qkv
+    (4096, 50, 1152), bf16, no mask, as ``_time_packed`` runs them. 3
+    timings each (median)."""
+    gen = torch.Generator().manual_seed(15)
+    dt = torch.bfloat16
+    b, s, h, d = 4096, 50, 6, 64
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen).to(DEVICE, dt)
+    g = torch.randn(b, s, h * d, generator=gen).to(DEVICE, dt)
+    out = _time_packed(qkv, g, h, repeats=3, d=d)
     _log_times(out)
     return out
 
@@ -2112,13 +2203,17 @@ def check_train_step_against_cpu(rng: np.random.Generator,
                                  fused_blocks: str = "off",
                                  preset: str = "flagship_tpu_config",
                                  steps: int = 1, tokens: bool = False,
+                                 cpu_overrides: Optional[dict] = None,
                                  **overrides) -> dict:
     """The flagship step at full width, B=8, dropout 0, the same weights and
     masks, with ``fused_blocks`` as given and ``preset`` (with
     ``overrides``) as its config: the card in bf16 with the kernels, the CPU
     in fp32 with the plain versions, ``steps`` steps each. With ``tokens``
     the text tower reads token ids (S=64) with padding masks instead of
-    cached features (train it with ``text_trainable=True``). After the last
+    cached features (train it with ``text_trainable=True``). Each side's
+    step accumulates over its config's ``accum_steps``; ``cpu_overrides``
+    change the CPU's config (phase 15 holds the card's GradCache step
+    against the CPU's one pass over the batch). After the last
     step: losses within 2e-2 relative; every trainable gradient with cosine
     >= 0.99 to the CPU's, but those that are 0 in exact arithmetic (their
     CPU norm below 1e-6 of the largest; the card's must stay below 1e-3 of
@@ -2141,7 +2236,8 @@ def check_train_step_against_cpu(rng: np.random.Generator,
     card = build_train_model(b, "bfloat16", "cuda", seed=1, preset=preset,
                              text_config=text_config, dropout=0.0,
                              fused_blocks=fused_blocks, **overrides)
-    cpu = CLIPModel(card.cfg.replace(compute_dtype="float32"),
+    cpu = CLIPModel(card.cfg.replace(compute_dtype="float32",
+                                     **(cpu_overrides or {})),
                     card.text_config, card.vit_config, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
     vcfg = card.image_encoder.config
@@ -2176,7 +2272,8 @@ def check_train_step_against_cpu(rng: np.random.Generator,
     metrics, grads, params, emas = [], [], [], []
     for model in (card, cpu):
         opt = make_optimizer(model.cfg, model)
-        step = make_train_step(model, opt, model.cfg)
+        step = make_train_step(model, opt, model.cfg,
+                               accum_steps=model.cfg.accum_steps)
         state = TrainState.create(model, opt)
         counts = _reset_counts()
         for batch, masking in zip(batches, maskings):
@@ -2432,6 +2529,335 @@ def check_fused_serving_tower(rng: np.random.Generator) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Phases 14-15: large_batch_mesh_config on one card
+# ---------------------------------------------------------------------------
+
+LARGE_PRESET = "large_batch_mesh_config"
+LARGE_BATCH = 32768
+LARGE_DATA_SEED = 12
+
+
+def large_batch_launches(model) -> dict:
+    """Kernel launches per step of a GradCache step of ``model`` (MAE
+    'full' decoder, cached text, per block): per microbatch #1 runs
+    without lse over the encoder's and the decoder's blocks in pass 1,
+    with lse over both in pass 2 and again over the encoder's when remat
+    recomputes them; #3 once per block."""
+    k = model.cfg.accum_steps
+    enc = len(model.image_encoder.blocks)
+    dec = len(model.image_encoder.decoder_blocks)
+    again = enc if model.cfg.remat else 0
+    return dict(LAUNCHES_PER_STEP, flash_attention=0, flash_attention_bwd=0,
+                qkv_packed_attention=k * (2 * (enc + dec) + again),
+                qkv_packed_attention_bwd=k * (enc + dec))
+
+
+def _large_batch(model, rows: int, seed: int) -> dict:
+    """uint8 patches and cached text features (fp32), made on the model's
+    device from ``seed``; every row valid."""
+    dev = model.device
+    vcfg = model.image_encoder.config
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {"image": torch.randint(
+                0, 256, (rows, vcfg.num_patches, vcfg.patch_size ** 2 * 3),
+                dtype=torch.uint8, device=dev, generator=gen),
+            "text_features": torch.randn(rows, model.text_config.dim,
+                                         device=dev, generator=gen),
+            "valid": torch.ones(rows, dtype=torch.bool, device=dev)}
+
+
+def _pass2_peak(model, batch: dict, masking) -> dict:
+    """Peak device memory of one microbatch's pass 2 (the forward with
+    autograd recording, then the backward of its embeddings and MAE loss),
+    or the out-of-memory error's first line; ``base_gb`` is what was
+    allocated before it."""
+    from mae_clip_torch.train.loop import _forward
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out = _forward(model, batch, True, None, model.cfg, masking)
+        ys = [out["image_embeddings"], out["text_embeddings"],
+              out["mae_loss"]]
+        torch.autograd.backward(ys, [torch.full_like(y, 1e-4) for y in ys])
+        del out, ys
+        torch.cuda.synchronize()
+        result = dict(peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    except torch.cuda.OutOfMemoryError as e:
+        result = dict(oom=str(e).splitlines()[0])
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(result, base_gb=base / 1e9)
+
+
+def train_large_batch() -> tuple:
+    """Phase 14: ``large_batch_mesh_config`` as the preset is (GradCache
+    over 8 microbatches of 4,096, the chunked soft-target loss at 4,096
+    columns, LAMB, per-block remat of the encoder, the MAE-paper decoder)
+    at batch 32,768 in bf16 on one card, uint8 patches and cached text
+    features made on the card. One warm-up step, then two steps under the
+    profiler: wall and device ms a step, pairs/s, the busy share, the
+    stages; every kernel launching exactly ``large_batch_launches`` a step;
+    finite losses; every trainable tensor moved. Then one microbatch's
+    pass 2 alone, with remat and without (its peak memory, or the OOM)."""
+    from mae_clip_torch.ops.masking import random_masking
+    from mae_clip_torch.train import (TrainState, make_optimizer,
+                                      make_train_step)
+    from mae_clip_torch.train.loop import _microbatches
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_train_model(LARGE_BATCH, "bfloat16", DEVICE.type,
+                              preset=LARGE_PRESET)
+    cfg = model.cfg
+    batch = _large_batch(model, LARGE_BATCH, LARGE_DATA_SEED)
+    opt = make_optimizer(cfg, model)
+    state = TrainState.create(model, opt, seed=0)
+    step = make_train_step(model, opt, cfg, accum_steps=cfg.accum_steps)
+    per_step = large_batch_launches(model)
+    trainable = {n: p.detach().clone() for n, p in model.named_parameters()
+                 if p.requires_grad}
+    data_gb = sum(t.numel() * t.element_size() for t in batch.values()) / 1e9
+    log(f"  batch {LARGE_BATCH}: {cfg.accum_steps} microbatches, loss "
+        f"chunks of {cfg.loss_chunk_size}, {cfg.optimizer}, remat "
+        f"{cfg.remat}, decoder '{cfg.mae.decoder_style}'; data "
+        f"{data_gb:.2f} GB on the card")
+
+    metrics, steps = [], 0
+
+    def run():
+        nonlocal steps
+        steps += 1
+        metrics.append(step(state, batch))
+
+    counts = _reset_counts()
+    warm_ms = _synced_ms(run)
+    prof = profile_window(lambda: [run() for _ in range(2)], top=10,
+                          spans=STEP_SPANS,
+                          check=lambda window: step_stages(window, 2))
+    stages = step_stages(prof, 2)
+    launches = _read_counts(counts)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    values = [{k: float(v) for k, v in m.items()} for m in metrics]
+    log(f"  metrics of the {steps} steps: {values}")
+    if not all(np.isfinite(list(m.values())).all() for m in values):
+        raise AssertionError(f"non-finite metrics: {values}")
+    log(f"  kernel launches ({steps} steps): {launches}; expected per step "
+        f"{per_step}")
+    for name, n in per_step.items():
+        if launches[name] != n * steps:
+            raise AssertionError(f"{name}: {launches[name]} launches in "
+                                 f"{steps} steps, expected {n} per step")
+    moved = [n for n, p in model.named_parameters()
+             if p.requires_grad and not torch.equal(p.detach(), trainable[n])]
+    if len(moved) != len(trainable):
+        raise AssertionError(f"{len(trainable) - len(moved)} trainable "
+                             "tensors did not change")
+    del trainable
+    wall = prof["wall_ms"] / 2
+    device = prof["device_busy_ms"] / 2
+    result = dict(batch=LARGE_BATCH, accum_steps=cfg.accum_steps,
+                  loss_chunk_size=cfg.loss_chunk_size, remat=cfg.remat,
+                  warmup_ms=warm_ms, step_ms_profiled=wall,
+                  device_ms=device, busy_share=prof["busy_share"],
+                  pairs_per_s=LARGE_BATCH / wall * 1e3, stages=stages,
+                  metrics=values, launches=launches, peak_memory_gb=peak,
+                  profile_2_steps=prof)
+    log(f"  warm-up step {warm_ms:.1f} ms; two steps under the profiler: "
+        f"{wall:.1f} ms wall and {device:.1f} ms device a step, busy "
+        f"{prof['busy_share']:.3f}, {result['pairs_per_s']:.1f} pairs/s; "
+        f"peak memory {peak:.2f} GB")
+    log(f"  stages of one step: {json.dumps(stages)}")
+    log(f"  profiled 2 steps: {json.dumps(prof)}")
+
+    rows = LARGE_BATCH // cfg.accum_steps
+    masking = random_masking(LARGE_BATCH, model.image_encoder.config
+                             .num_patches, cfg.mae.mask_ratio,
+                             torch.Generator(device=model.device)
+                             .manual_seed(1))
+    first, first_masking = _microbatches(batch, masking, cfg.accum_steps)[0]
+    probe = {}
+    for remat in (True, False):
+        model.image_encoder.remat = remat
+        probe["remat" if remat else "no_remat"] = _pass2_peak(
+            model, first, first_masking)
+    model.image_encoder.remat = cfg.remat
+    log(f"  one microbatch of {rows}, pass 2 alone: {json.dumps(probe)}")
+    if "oom" in probe["remat"]:
+        raise AssertionError(f"a microbatch of {rows} does not fit with "
+                             f"remat: {probe['remat']}")
+    result["pass2_microbatch"] = probe
+    del model, opt, state, step, batch, first, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, result
+
+
+def check_chunked_losses(rows: int = 16384, dim: int = 256,
+                         chunks=(4096, 3000), memory_rows: int = 32768,
+                         memory_chunk: int = 4096) -> dict:
+    """Phase 15 (a): the chunked soft (T=1) and hard (T=0.07) losses
+    against the unchunked ones on the card, fp32 embeddings (rows, dim)
+    with three padded rows, in chunks that divide the rows and that do not:
+    the value within 1e-5 relative, both embedding gradients within 1e-5 of
+    the largest entry. Then the peak memory of forward + backward: the
+    unchunked losses at ``rows``, the chunked at ``rows`` and at
+    ``memory_rows`` in chunks of ``memory_chunk``."""
+    from mae_clip_torch.ops import losses as L
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+
+    def inputs(n):
+        img, txt = (torch.randn(n, dim, device=DEVICE, generator=gen)
+                    for _ in range(2))
+        valid = torch.ones(n, dtype=torch.bool, device=DEVICE)
+        valid[[5, n // 2, n - 1]] = False
+        return img, txt, valid
+
+    def value_and_grads(fn, img, txt, valid):
+        img, txt = (x.detach().requires_grad_() for x in (img, txt))
+        loss = fn(img, txt, valid)
+        return (loss.detach(), *torch.autograd.grad(loss, (img, txt)))
+
+    losses = {"soft": (L.clip_soft_ce_loss, L.clip_soft_ce_loss_chunked,
+                       1.0),
+              "hard": (L.clip_hard_ce_loss, L.clip_hard_ce_loss_chunked,
+                       0.07)}
+    img, txt, valid = inputs(rows)
+    out = {}
+    for name, (plain, chunked, t) in losses.items():
+        want = value_and_grads(lambda i, x, v: plain(i, x, t, v), img, txt,
+                               valid)
+        for chunk in chunks:
+            got = value_and_grads(
+                lambda i, x, v: chunked(i, x, t, v, chunk), img, txt, valid)
+            err = dict(value=float((got[0] - want[0]).abs() / want[0].abs()),
+                       d_img=float((got[1] - want[1]).abs().max()
+                                   / want[1].abs().max()),
+                       d_txt=float((got[2] - want[2]).abs().max()
+                                   / want[2].abs().max()))
+            out[f"{name}_chunk_{chunk}"] = dict(err, loss=float(want[0]))
+            log(f"  {name} loss at {rows} rows, chunks of {chunk}: "
+                f"{float(got[0]):.6f} against {float(want[0]):.6f}; "
+                f"relative errors {err}")
+            if not all(e <= 1e-5 for e in err.values()):   # NaN fails
+                raise AssertionError(f"chunked {name} loss, chunk {chunk}: "
+                                     f"{err} (limit 1e-5)")
+    del img, txt, valid, want, got
+
+    def peak_gb(fn, n):
+        img, txt, valid = inputs(n)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        value_and_grads(fn, img, txt, valid)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    memory = {}
+    for name, (plain, chunked, t) in losses.items():
+        memory[name] = {
+            f"unchunked_{rows}": peak_gb(
+                lambda i, x, v: plain(i, x, t, v), rows),
+            f"chunked_{rows}_by_{memory_chunk}": peak_gb(
+                lambda i, x, v: chunked(i, x, t, v, memory_chunk), rows),
+            f"chunked_{memory_rows}_by_{memory_chunk}": peak_gb(
+                lambda i, x, v: chunked(i, x, t, v, memory_chunk),
+                memory_rows)}
+    log(f"  peak GB of forward + backward above the inputs: "
+        f"{json.dumps(memory)}")
+    out["peak_gb"] = memory
+    return out
+
+
+def check_gradcache_against_giant_batch(batch: int = 64, accum: int = 4,
+                                        chunk: int = 16) -> dict:
+    """Phase 15 (b): ``large_batch_mesh_config`` at full width, bf16 on the
+    card, dropout 0: GradCache (``accum`` microbatches, the chunked loss
+    at ``chunk`` columns, remat) against the one-pass step (accum 1,
+    unchunked, no remat) on the same weights, batch and masks, gradients
+    read from ``.grad`` (SGD). Every metric within 1e-3 relative, every
+    gradient cosine >= 0.999 and norm ratio within 1e-2 of 1 but those
+    that are 0 in exact arithmetic (norm below 1e-6 of the largest; the
+    other's below 1e-3 of it)."""
+    from mae_clip_torch.ops.masking import MaskingResult, random_masking
+    from mae_clip_torch.train import TrainState, make_train_step
+
+    runs = []
+    for kw in (dict(accum_steps=accum, loss_chunk_size=chunk, remat=True),
+               dict(accum_steps=1, loss_chunk_size=0, remat=False)):
+        model = build_train_model(batch, "bfloat16", DEVICE.type, seed=3,
+                                  preset=LARGE_PRESET, dropout=0.0, **kw)
+        data = _large_batch(model, batch, 14)
+        vcfg = model.image_encoder.config
+        masking = MaskingResult(*(x.to(model.device) for x in random_masking(
+            batch, vcfg.num_patches, model.cfg.mae.mask_ratio,
+            torch.Generator().manual_seed(4))))
+        opt = torch.optim.SGD([p for p in model.parameters()
+                               if p.requires_grad], lr=1.0)
+        metrics = make_train_step(model, opt, model.cfg, accum_steps=model.cfg
+                                  .accum_steps)(TrainState.create(model, opt),
+                                                data, masking=masking)
+        runs.append(({k: float(v) for k, v in metrics.items()},
+                     {n: p.grad.float() for n, p in model.named_parameters()
+                      if p.grad is not None}))
+        del model, opt, data
+    (got, got_g), (want, want_g) = runs
+    log(f"  metrics GradCache {got} vs one pass {want}")
+    for k, w in want.items():
+        if abs(got[k] - w) > 1e-3 * abs(w):
+            raise AssertionError(f"{k}: GradCache {got[k]} vs {w}")
+    if set(got_g) != set(want_g):
+        raise AssertionError("GradCache and the one-pass step trained "
+                             "different tensors")
+    big = max(float(g.norm()) for g in want_g.values())
+    zero = {n for n, g in want_g.items() if float(g.norm()) <= 1e-6 * big}
+    stray = {n: float(got_g[n].norm()) for n in zero}
+    if any(v > 1e-3 * big for v in stray.values()):
+        raise AssertionError(f"gradients that should be 0: {stray}")
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        got_g[n].flatten(), g.flatten(), dim=0))
+        for n, g in want_g.items() if n not in zero}
+    # The cosine misses a scale error (say pass 2's MAE cotangent off by
+    # k), so each tensor's norm is held against the one pass's too.
+    ratio = {n: float(got_g[n].norm() / g.norm())
+             for n, g in want_g.items() if n not in zero}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+    far = sorted(ratio.items(), key=lambda kv: -abs(kv[1] - 1))[:5]
+    log(f"  gradient cosine over {len(cos)} tensors: lowest "
+        f"{[(n, round(c, 6)) for n, c in worst]}; norm ratios farthest "
+        f"from 1 {[(n, round(r, 6)) for n, r in far]}; 0 in exact "
+        f"arithmetic {stray}")
+    if worst[0][1] < 0.999:
+        raise AssertionError(f"gradient cosine {worst[0]} < 0.999")
+    if not abs(far[0][1] - 1) <= 1e-2:      # NaN fails
+        raise AssertionError(f"gradient norm ratio {far[0]}: not within "
+                             "1e-2 of 1")
+    return dict(metrics=got, one_pass_metrics=want,
+                min_grad_cosine=worst[0][1], worst_norm_ratio=far[0][1])
+
+
+def check_large_batch_options(rng: np.random.Generator) -> dict:
+    """Phase 15: (a) the chunked losses; (b) GradCache against the
+    one-pass step on the card; (c) the card's
+    GradCache step (accum 4, chunks of 3, remat) against the CPU's one pass
+    over the batch at fp32, with phase 7's limits."""
+    out = {}
+    log("  (a) chunked against unchunked losses, fp32")
+    out["chunked_losses"] = check_chunked_losses()
+    log("  (b) GradCache against the one-pass step, B=64, bf16")
+    out["gradcache"] = check_gradcache_against_giant_batch()
+    log("  (c) the card's GradCache step against the CPU's one pass, B=8")
+    out["against_cpu"] = check_train_step_against_cpu(
+        rng, preset=LARGE_PRESET, accum_steps=4, loss_chunk_size=3,
+        cpu_overrides=dict(accum_steps=1, loss_chunk_size=0, remat=False))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: the MAE-pretrain step at batch 256
 # ---------------------------------------------------------------------------
 
@@ -2661,6 +3087,7 @@ def main() -> int:
         "stacks), augmentation card vs CPU")
     errs = check_kernels()
     check_backward_kernels(errs)
+    check_large_batch_attention(errs)
     check_patch_embed_kernel(errs)
     check_gemm_bodies(errs)
     check_block_stack_kernels(errs)
@@ -2718,6 +3145,18 @@ def main() -> int:
     t_phase = time.perf_counter()
     siglip["against_cpu"] = check_siglip_options_against_cpu(rng)
     log(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    log("phase 14: large_batch_mesh_config's step at batch 32,768 (bf16, "
+        "GradCache over 8 microbatches, the chunked loss, LAMB, remat, the "
+        "MAE-paper decoder)")
+    t_phase = time.perf_counter()
+    large_launches, large = train_large_batch()
+    log(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    log("phase 15: the slice's checks on the card: chunked losses, "
+        "GradCache against one pass, the card's GradCache step against the "
+        "CPU's one pass")
+    t_phase = time.perf_counter()
+    large["checks"] = check_large_batch_options(rng)
+    log(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
 
     log("phase 5: kernel times (serving, training, pretraining shapes, the "
         "block stacks' GEMM products, then "
@@ -2726,6 +3165,7 @@ def main() -> int:
     times = time_training_kernels()
     pre_times = time_pretrain_kernels()
     wide_times = time_wide_heads()
+    large_times = time_large_batch_kernels()
     gemm_times = time_gemm_shapes()
     stack_times = time_block_stacks()
     log(f"end to end: serving {json.dumps(e2e)}")
@@ -2734,12 +3174,16 @@ def main() -> int:
     log(f"end to end: training, fused_blocks='on' {json.dumps(fused)}")
     log(f"end to end: training, fused_blocks='fwd' {json.dumps(fused_fwd)}")
     log(f"end to end: training, SigLIP {json.dumps(siglip)}")
+    summary = {k: v for k, v in large.items() if k != "profile_2_steps"}
+    log(f"end to end: training, large_batch_mesh_config "
+        f"{json.dumps(summary)}")
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"serving": served, "training": launches,
                "pretraining": pre_launches, "training_fused": fused_launches,
                "training_fused_fwd": fwd_launches,
-               "training_siglip": siglip_launches}
+               "training_siglip": siglip_launches,
+               "training_large_batch": large_launches}
     kernels = []
     for name, (replaces, source) in KERNELS.items():
         extra = {}
@@ -2775,6 +3219,11 @@ def main() -> int:
             extra.update({k: t[k] for k in ("bound_share", "cast_ms",
                                             "cast_bound_ms",
                                             "cast_and_kernel_ms")})
+        if name in large_times:
+            extra["large_batch_shape"] = {
+                k: large_times[name][k] for k in ("shape", "ms", "plain_ms",
+                                                  "bound_ms", "bound_by",
+                                                  "library_ms")}
         if name in wide_times:
             extra["head_dim_256"] = {
                 k: wide_times[name][k] for k in ("shape", "ms", "plain_ms",

@@ -12,6 +12,10 @@ learnable-temperature (``logit_scale``) parameters are created as in the
 JAX package and trained in the "logit" group. The ResNet50 tower is not
 ported yet.
 
+``cfg.remat`` recomputes the towers' blocks in the backward (the ViT or
+MAE encoder's and DistilBERT's, per block; not the MAE decoder's or a
+fused stack's), as the JAX package's ``nn.remat``.
+
 A frozen tower (``trainable`` / ``text_trainable`` False) has
 ``requires_grad`` off, and with ``frozen_text_eval_mode`` the text tower
 stays in eval mode (no dropout) when the model trains.
@@ -55,7 +59,7 @@ def mae_vit_for(cfg: Config, vit_config: Optional[ViTConfig] = None,
                    mask_ratio=cfg.mae.mask_ratio,
                    decoder_style=cfg.mae.decoder_style,
                    dtype=dtype_of(cfg.compute_dtype),
-                   block_impl=cfg.fused_blocks)
+                   block_impl=cfg.fused_blocks, remat=cfg.remat)
     return model.to(resolve_device(device))
 
 
@@ -88,8 +92,9 @@ class CLIPModel(nn.Module):
         self.image_encoder = (mae_vit_for(cfg, vcfg, device)
                               if cfg.mae.enabled
                               else ViTEncoder(vcfg, dtype,
-                                              block_impl=cfg.fused_blocks))
-        self.text_encoder = TextEncoder(text_config, dtype)
+                                              block_impl=cfg.fused_blocks,
+                                              remat=cfg.remat))
+        self.text_encoder = TextEncoder(text_config, dtype, remat=cfg.remat)
         self.image_projection = ProjectionHead(vcfg.dim, cfg.projection_dim,
                                                cfg.dropout, dtype)
         self.text_projection = ProjectionHead(text_config.dim,

@@ -23,7 +23,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from mae_clip_torch.models.layers import Dense, Embed, LayerNorm, gelu
+from mae_clip_torch.models.layers import (Dense, Embed, LayerNorm, gelu,
+                                          run_block)
 from mae_clip_torch.ops.attention import multi_head_attention
 
 
@@ -120,12 +121,13 @@ class Transformer(nn.Module):
 
 
 class DistilBertModel(nn.Module):
-    """Returns the last hidden state, shape (B, S, dim)."""
+    """Returns the last hidden state, shape (B, S, dim). With ``remat``
+    each layer is recomputed in the backward (``layers.run_block``)."""
 
     def __init__(self, config: DistilBertConfig = DistilBertConfig(),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
-        self.config = config
+        self.config, self.remat = config, remat
         self.embeddings = Embeddings(config, dtype)
         self.transformer = Transformer(config, dtype)
 
@@ -136,7 +138,7 @@ class DistilBertModel(nn.Module):
                      else (attention_mask != 0).to(torch.float32))
         x = self.embeddings(input_ids)
         for block in self.transformer.layer:
-            x = block(x, key_valid)
+            x = run_block(block, x, key_valid, remat=self.remat)
         return x
 
 
@@ -145,9 +147,9 @@ class TextEncoder(nn.Module):
 
     def __init__(self, config: DistilBertConfig = DistilBertConfig(),
                  dtype: torch.dtype = torch.float32,
-                 target_token_idx: int = 0):
+                 target_token_idx: int = 0, remat: bool = False):
         super().__init__()
-        self.model = DistilBertModel(config, dtype)
+        self.model = DistilBertModel(config, dtype, remat)
         self.target_token_idx = target_token_idx
 
     def forward(self, input_ids: torch.Tensor,

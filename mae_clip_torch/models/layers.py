@@ -8,6 +8,7 @@
   dtype.
 * ``gelu``: ``"erf"`` is torch's exact GELU, ``"tanh"`` the approximation.
 * ``Embed``: a token table whose lookup is cast to the compute dtype.
+* ``run_block``: a block call, rematerialised under ``Config.remat``.
 
 Parameters are fp32; the compute dtype comes from ``Config.compute_dtype``.
 """
@@ -19,6 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16, "float64": torch.float64}
@@ -75,6 +77,16 @@ class Embed(nn.Embedding):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return super().forward(ids).to(self.compute_dtype)
+
+
+def run_block(block: nn.Module, *args, remat: bool = False):
+    """``block(*args)``. With ``remat``, while autograd records, the block
+    runs under ``torch.utils.checkpoint``: its activations are dropped and
+    recomputed in the backward (the JAX package's ``nn.remat``), with the
+    RNG state replayed, so dropout draws the same masks twice."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
 
 
 @torch.no_grad()

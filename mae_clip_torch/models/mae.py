@@ -25,7 +25,9 @@ off by default as there) embeds the visible patches through
 ``block_impl`` (``Config.fused_blocks``, see ``vit.use_fused_blocks``) runs
 the encoder's blocks (in ``forward`` and ``encode_full``) and the
 ``'cross'`` decoder's blocks as fused stacks; the ``'full'`` decoder keeps
-its per-block loop, as in the JAX package.
+its per-block loop, as in the JAX package. ``remat`` (``Config.remat``)
+recomputes the encoder's blocks in the backward, not the decoder's, as
+the JAX package wraps only the encoder's in ``nn.remat``.
 """
 
 from __future__ import annotations
@@ -136,7 +138,7 @@ class MAEViT(nn.Module):
                  decoder_style: str = "full",
                  dtype: torch.dtype = torch.float32,
                  use_patch_embed_kernel: bool = False,
-                 block_impl: str = "off"):
+                 block_impl: str = "off", remat: bool = False):
         super().__init__()
         if decoder_style not in ("full", "cross"):
             raise ValueError(f"unknown decoder_style {decoder_style!r}")
@@ -144,7 +146,7 @@ class MAEViT(nn.Module):
         self.config, self.decoder, self.mask_ratio = c, d, mask_ratio
         self.decoder_style = decoder_style
         use_fused_blocks(block_impl, c)  # rejects an unknown value
-        self.block_impl, self.dtype = block_impl, dtype
+        self.block_impl, self.dtype, self.remat = block_impl, dtype, remat
 
         self.patch_embed = PatchEmbed(c, channels, dtype,
                                       masked_kernel=use_patch_embed_kernel)
@@ -184,7 +186,7 @@ class MAEViT(nn.Module):
         cls = (self.cls_token + self.enc_pe[:, :1]).expand(x.shape[0], -1, -1)
         x = torch.cat([cls.to(x.dtype), x], dim=1)
         x = run_self_blocks(self.blocks, x, self.config, self.block_impl,
-                            self.dtype)
+                            self.dtype, self.remat)
         return self.norm(x)
 
     def encode_full(self, images: torch.Tensor) -> torch.Tensor:

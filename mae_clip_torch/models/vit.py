@@ -17,6 +17,10 @@ forward, a per-block plain recompute backward). The fused forms need heads
 of a multiple of 128, dropout 0 and a known GELU (``use_fused_blocks``);
 other geometries keep the per-block path. ``'auto'`` engages only on a TPU
 in the JAX package, and stays off here until measured on the card.
+
+``remat`` (``Config.remat``) recomputes each block of the per-block path in
+the backward (``layers.run_block``); the fused stacks ignore it, as the
+JAX package's do.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 from torch import nn
 
 from mae_clip_torch.config import Config
-from mae_clip_torch.models.layers import Dense, LayerNorm, gelu
+from mae_clip_torch.models.layers import Dense, LayerNorm, gelu, run_block
 from mae_clip_torch.ops.attention import fused_qkv_attention
 from mae_clip_torch.ops.block_kernel import (fused_block_stack,
                                              fused_block_stack_fwd_plain_bwd)
@@ -239,15 +243,16 @@ def fused_stack_fn(block_impl: str):
 
 
 def run_self_blocks(blocks, x: torch.Tensor, cfg: ViTConfig, block_impl: str,
-                    dtype: torch.dtype) -> torch.Tensor:
-    """A stack of ViTBlocks: fused when ``use_fused_blocks`` says so, else
-    block by block."""
+                    dtype: torch.dtype, remat: bool = False) -> torch.Tensor:
+    """A stack of ViTBlocks: fused when ``use_fused_blocks`` says so (which
+    ignores ``remat``), else block by block, each recomputed in the
+    backward with ``remat``."""
     if use_fused_blocks(block_impl, cfg):
         w = collect_self_block_weights(blocks, cfg.dim, dtype)
         return fused_stack_fn(block_impl)(x, x, w, cfg.n_heads, cfg.gelu,
                                           cross=False)
     for block in blocks:
-        x = block(x)
+        x = run_block(block, x, remat=remat)
     return x
 
 
@@ -256,10 +261,10 @@ class ViTEncoder(nn.Module):
 
     def __init__(self, config: ViTConfig = VIT_S16,
                  dtype: torch.dtype = torch.float32,
-                 block_impl: str = "off"):
+                 block_impl: str = "off", remat: bool = False):
         super().__init__()
         c = self.config = config
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         use_fused_blocks(block_impl, c)  # rejects an unknown value
         self.block_impl = block_impl
         self.patch_embed = PatchEmbed(c, dtype=dtype)
@@ -282,7 +287,7 @@ class ViTEncoder(nn.Module):
         pe = self.pos_embed if self.config.pos_embed == "learned" else self.sincos
         x = x + pe.to(x.dtype)
         x = run_self_blocks(self.blocks, x, self.config, self.block_impl,
-                            self.dtype)
+                            self.dtype, self.remat)
         x = self.norm(x)
         if self.config.pool == "cls":
             return x[:, 0]

@@ -35,10 +35,33 @@ per train step, drawn from ``state.generator``, or a full-frame resize on
 eval (``ops/augment.py``); uint8 at the model's geometry is only
 normalised; anything else passes through.
 
-The contrastive loss is the local one, as the JAX step computes it without a
-mesh. Not ported, and raising: gradient accumulation (GradCache) and the
-chunked loss. The global loss, the Trainer and checkpoints are later
-slices.
+The contrastive loss is the one-device form of the JAX step's
+(``_clip_loss_fn``): with ``cfg.global_contrastive`` and
+``cfg.loss_chunk_size > 0`` the softmax losses stream their columns in
+blocks (``ops/losses.py``, the JAX step's 1-device-mesh route), SigLIP
+keeps its local loss, and ``global_contrastive=False`` keeps the local
+losses whatever the chunk size.
+
+``make_train_step(..., accum_steps=k)`` splits the batch into k equal
+microbatches for one update. With ``true_global_contrastive`` (the
+default) it is GradCache (Gao et al., arXiv:2101.06983), as the JAX step:
+the MAE masks drawn once for the whole batch (or the caller's) and cut per
+microbatch; pass 1 embeds each microbatch without gradients; the
+contrastive loss over the whole batch gives the embeddings' gradients and
+the loss-only parameters' (``logit_scale``, ``logit_bias``); pass 2 runs
+each microbatch again and back-propagates those gradients, and
+``mae.loss_weight / k`` into its MAE loss. Each microbatch's RNG states
+(``state.generator`` for the crops, torch's for dropout) are saved before
+pass 1 and restored for pass 2, so both passes draw the same. The MAE
+loss is the mean of the microbatch means, as in JAX; it equals the whole
+batch's only when every microbatch holds as many valid rows. Without
+``true_global_contrastive`` each microbatch has its own loss and
+gradients, both averaged over k (the JAX step's legacy mode; each
+microbatch draws its own masks). Under GradCache the two spans cover
+pass 1 with the loss and pass 2; the legacy mode opens them once per
+microbatch.
+
+The Trainer, checkpoints and the cross-device losses are later slices.
 """
 
 from __future__ import annotations
@@ -55,7 +78,7 @@ from mae_clip_torch.data.images import normalize_pixels, normalize_uint8
 from mae_clip_torch.data.tokenizer import pad_token_batch
 from mae_clip_torch.ops import augment
 from mae_clip_torch.ops import losses as losses_lib
-from mae_clip_torch.ops.masking import MaskingResult
+from mae_clip_torch.ops.masking import MaskingResult, random_masking
 from mae_clip_torch.train.state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -127,11 +150,11 @@ def _mae_images_and_forward(model, batch: Dict[str, torch.Tensor],
 
 
 def _clip_loss_fn(cfg: Config) -> Callable:
-    """The local contrastive loss: ``fn(img, txt, valid, extras)``."""
-    if cfg.loss_chunk_size > 0:
-        raise NotImplementedError("the chunked global contrastive loss is "
-                                  "not ported")
-    return losses_lib.contrastive_loss_fn(cfg)
+    """The step's contrastive loss, ``fn(img, txt, valid, extras)``: the
+    chunked softmax losses with ``cfg.global_contrastive`` and
+    ``cfg.loss_chunk_size > 0``, else the local ones."""
+    chunk = cfg.loss_chunk_size if cfg.global_contrastive else 0
+    return losses_lib.contrastive_loss_fn(cfg, chunk)
 
 
 def _metrics(cfg: Config, out: Metrics, clip_loss: torch.Tensor) -> Metrics:
@@ -155,28 +178,142 @@ def _update(state: TrainState, cfg: Config) -> None:
     state.step += 1
 
 
+def _microbatches(batch: Dict[str, torch.Tensor],
+                  masking: Optional[MaskingResult], k: int) -> list:
+    """``k`` equal slices of the batch along its rows, each with its slice
+    of ``masking`` (or None)."""
+    rows = batch["image"].shape[0]
+    if rows % k:
+        raise ValueError(f"a batch of {rows} rows does not split into "
+                         f"{k} equal microbatches")
+    size = rows // k
+    return [({name: v[i * size:(i + 1) * size] for name, v in batch.items()},
+             None if masking is None else MaskingResult(
+                 *(x[i * size:(i + 1) * size] for x in masking)))
+            for i in range(k)]
+
+
+def _rng_states(generator: torch.Generator) -> tuple:
+    """The states of ``generator`` and of torch's default generators (the
+    CPU's and, on the card, the card's) that a microbatch draws from."""
+    device = generator.device
+    return (generator.get_state(), torch.get_rng_state(),
+            torch.cuda.get_rng_state(device) if device.type == "cuda"
+            else None)
+
+
+def _set_rng_states(generator: torch.Generator, states: tuple) -> None:
+    gen, cpu, card = states
+    generator.set_state(gen)
+    torch.set_rng_state(cpu)
+    if card is not None:
+        torch.cuda.set_rng_state(card, generator.device)
+
+
+def _full_batch_masking(model, rows: int, generator: torch.Generator
+                        ) -> Optional[MaskingResult]:
+    """The MAE masks of the whole batch, drawn as the model draws them in
+    one step (``MAEViT.forward``), or None without MAE."""
+    if not model.cfg.mae.enabled:
+        return None
+    enc = model.image_encoder
+    return random_masking(rows, enc.config.num_patches, enc.mask_ratio,
+                          generator)
+
+
 def make_train_step(model, optimizer: torch.optim.Optimizer, cfg: Config,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1,
+                    true_global_contrastive: bool = True):
     """``step(state, batch, masking=None) -> metrics``; updates the model in
-    place and adds one to ``state.step``."""
-    if accum_steps != 1:
-        raise NotImplementedError("accum_steps > 1 (GradCache accumulation) "
-                                  "is not ported")
+    place and adds one to ``state.step``. ``accum_steps > 1`` accumulates
+    over that many microbatches (GradCache with
+    ``true_global_contrastive``, else the per-microbatch loss)."""
+    if accum_steps < 1:
+        raise ValueError("accum_steps must be >= 1")
     clip_loss_fn = _clip_loss_fn(cfg)
+
+    def loss_of(batch, masking, generator):
+        out = _forward(model, batch, True, generator, cfg, masking)
+        return _metrics(cfg, out, clip_loss_fn(
+            out["image_embeddings"], out["text_embeddings"],
+            batch.get("valid"), losses_lib.loss_extras(model)))
+
+    def single(state, batch, masking):
+        with record_function("train_step.forward"):
+            metrics = loss_of(batch, masking, state.generator)
+        with record_function("train_step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            metrics["loss"].backward()
+        return metrics
+
+    def legacy(state, batch, masking):
+        optimizer.zero_grad(set_to_none=True)
+        total = {}
+        for mb, mb_masking in _microbatches(batch, masking, accum_steps):
+            with record_function("train_step.forward"):
+                metrics = loss_of(mb, mb_masking, state.generator)
+            with record_function("train_step.backward"):
+                (metrics["loss"] / accum_steps).backward()
+            for name, v in metrics.items():
+                total[name] = total.get(name, 0.0) + v.detach()
+        return {name: v / accum_steps for name, v in total.items()}
+
+    def gradcache(state, batch, masking):
+        gen = state.generator
+        with record_function("train_step.forward"):
+            if masking is None:
+                masking = _full_batch_masking(model, batch["image"].shape[0],
+                                              gen)
+            micro = _microbatches(batch, masking, accum_steps)
+            rng, imgs, txts, maes = [], [], [], []
+            with torch.no_grad():   # pass 1: the embeddings alone
+                for mb, mb_masking in micro:
+                    rng.append(_rng_states(gen))
+                    out = _forward(model, mb, True, gen, cfg, mb_masking)
+                    imgs.append(out["image_embeddings"])
+                    txts.append(out["text_embeddings"])
+                    maes.append(out.get("mae_loss"))
+            img = torch.cat(imgs).requires_grad_()
+            txt = torch.cat(txts).requires_grad_()
+            extras = losses_lib.loss_extras(model)
+            clip_loss = clip_loss_fn(img, txt, batch.get("valid"), extras)
+            d_img, d_txt, *d_extras = torch.autograd.grad(
+                clip_loss, (img, txt, *extras.values()))
+            metrics = {"clip_loss": clip_loss.detach(),
+                       "loss": clip_loss.detach()}
+            if cfg.mae.enabled:
+                metrics["mae_loss"] = torch.stack(maes).mean()
+                metrics["loss"] = (metrics["loss"]
+                                   + cfg.mae.loss_weight * metrics["mae_loss"])
+        with record_function("train_step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            mae_cot = torch.full((), cfg.mae.loss_weight / accum_steps,
+                                 device=img.device)
+            rows = img.shape[0] // accum_steps
+            for i, (mb, mb_masking) in enumerate(micro):   # pass 2
+                _set_rng_states(gen, rng[i])
+                out = _forward(model, mb, True, gen, cfg, mb_masking)
+                rows_i = slice(i * rows, (i + 1) * rows)
+                outs = [out["image_embeddings"], out["text_embeddings"]]
+                cots = [d_img[rows_i], d_txt[rows_i]]
+                if "mae_loss" in out:
+                    outs.append(out["mae_loss"])
+                    cots.append(mae_cot)
+                torch.autograd.backward(outs, cots)
+            # The loss-only parameters do not reach the embeddings: their
+            # gradients are the loss pass's alone.
+            for p, g in zip(extras.values(), d_extras):
+                p.grad = g
+        return metrics
+
+    run = (single if accum_steps == 1
+           else gradcache if true_global_contrastive else legacy)
 
     def step(state: TrainState, batch,
              masking: Optional[MaskingResult] = None) -> Metrics:
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the state holds another model or optimizer")
-        with record_function("train_step.forward"):
-            batch = _as_tensors(batch, model.device)
-            out = _forward(model, batch, True, state.generator, cfg, masking)
-            metrics = _metrics(cfg, out, clip_loss_fn(
-                out["image_embeddings"], out["text_embeddings"],
-                batch.get("valid"), losses_lib.loss_extras(model)))
-        with record_function("train_step.backward"):
-            optimizer.zero_grad(set_to_none=True)
-            metrics["loss"].backward()
+        metrics = run(state, _as_tensors(batch, model.device), masking)
         _update(state, cfg)
         return {k: v.detach() for k, v in metrics.items()}
 

@@ -45,9 +45,6 @@ class TrainState:
         """``cfg`` defaults to ``model.cfg`` (a ``CLIPModel``'s); a
         standalone ``MAEViT`` has none and is passed its config here."""
         cfg = model.cfg if cfg is None else cfg
-        if cfg.remat:
-            raise NotImplementedError("remat=True: recomputing the tower "
-                                      "blocks in the backward is not ported")
         device = next(model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(seed)
         state = cls(step=0, model=model, optimizer=optimizer,

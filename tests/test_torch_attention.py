@@ -15,6 +15,7 @@ import torch
 
 from mae_clip_torch.ops import _build
 from mae_clip_torch.ops import attention as A
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 

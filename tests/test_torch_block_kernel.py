@@ -27,6 +27,7 @@ import chip_smoke
 from mae_clip_torch.models.layers import init_weights
 from mae_clip_torch.models.vit import ViTConfig, ViTEncoder, use_fused_blocks
 from mae_clip_torch.ops import block_kernel as BK
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (B, Sq, Sk, D, H, F, L, cross): the smallest legal width at odd lengths
 # (Sq and Sk not multiples of 16 or 64), self and cross.

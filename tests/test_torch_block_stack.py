@@ -47,6 +47,7 @@ from mae_clip_torch.ops import block_kernel as BK
 from mae_clip_torch.ops.losses import mae_reconstruction_loss
 from mae_clip_torch.ops.masking import MaskingResult
 from mae_clip_torch.train import TrainState, make_optimizer, make_train_step
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 L, B, SQ, SK, D, F, H = 2, 2, 9, 5, 128, 256, 1
 VAL_TOL = dict(atol=2e-5, rtol=1e-4)

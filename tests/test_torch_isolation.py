@@ -13,6 +13,7 @@ import torch
 
 from mae_clip_tpu import config as jax_config
 from mae_clip_torch import config as torch_config
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "mae_clip_torch").rglob("*.py")) + [

@@ -21,6 +21,7 @@ from mae_clip_torch import config as torch_config
 from mae_clip_torch.interop.from_jax import state_dict_from_flax
 from mae_clip_torch.models import CLIPModel, DistilBertConfig, ViTConfig
 from mae_clip_torch.models import vit as torch_vit
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 TEXT = dict(vocab_size=50, dim=32, n_layers=2, n_heads=4, hidden_dim=64,

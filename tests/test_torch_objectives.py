@@ -37,6 +37,7 @@ from mae_clip_torch.models.distilbert import DistilBertConfig, TextEncoder
 from mae_clip_torch.ops import attention as A
 from mae_clip_torch.ops import losses as torch_losses
 from mae_clip_torch.train import optim as torch_optim
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-5, rtol=1e-3)

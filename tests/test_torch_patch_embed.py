@@ -19,6 +19,7 @@ from mae_clip_torch.models.vit import PatchEmbed, ViTConfig
 from mae_clip_torch.ops import _build
 from mae_clip_torch.ops.patch_embed import (masked_patch_embed,
                                             masked_patch_embed_ref)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (B, N, Din, K, Dm): the MAE-pretrain step's shape at B=256 (tensor-core
 # body), an odd one with a ragged last row tile (tensor-core body), widths

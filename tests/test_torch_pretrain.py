@@ -46,6 +46,7 @@ from mae_clip_torch.ops.patch_embed import (masked_patch_embed,
 from mae_clip_torch.train import (TrainState, make_eval_step,
                                   make_mae_eval_step, make_mae_pretrain_step,
                                   make_optimizer, make_train_step)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 B = 4

@@ -32,6 +32,7 @@ from mae_clip_torch.models import CLIPModel, DistilBertConfig, ViTConfig
 from mae_clip_torch.ops import retrieval as torch_ret
 from mae_clip_torch.serve import (MicroBatcher, Overloaded, RetrievalService,
                                   make_server, serve_forever_in_thread)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CORPUS = ["a red square", "a blue circle", "a green dog", "two cats, sleeping"]
 QUERIES = ("a red square", "a blue circle", "a green dog")

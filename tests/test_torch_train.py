@@ -42,6 +42,7 @@ from mae_clip_torch.ops.masking import MaskingResult, random_masking
 from mae_clip_torch.train import (TrainState, make_eval_step, make_optimizer,
                                   make_train_step, param_groups,
                                   precompute_text_features)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 GRAD_TOL = dict(atol=1e-5, rtol=1e-3)
@@ -519,22 +520,13 @@ def _with_logit(params):
 
 
 def test_unported_options_raise(setup):
-    """What is still not ported raises: the chunked loss, GradCache
-    accumulation, remat, the ResNet50 tower."""
+    """What is still not ported raises: the ResNet50 tower."""
     _, tcfg, _, params = setup
     tmodel = _torch_model(tcfg, params)
     opt = make_optimizer(tcfg, tmodel)
     with pytest.raises(NotImplementedError):
-        make_train_step(tmodel, opt, tcfg.replace(loss_chunk_size=4))
-    with pytest.raises(NotImplementedError):
-        make_train_step(tmodel, opt, tcfg, accum_steps=2)
-    tmodel.cfg = tcfg.replace(remat=True)
-    with pytest.raises(NotImplementedError):
-        TrainState.create(tmodel, opt)
-    with pytest.raises(NotImplementedError):
         CLIPModel(tcfg.replace(model_name="resnet50",
                                mae=torch_config.MAEConfig()), device="cpu")
-    tmodel.cfg = tcfg
     state = TrainState.create(tmodel, opt)
     # uint8 sources at another size than cfg.size are now cropped in the
     # step (ops/augment.py) instead of raising.
@@ -558,14 +550,23 @@ def test_unported_options_raise(setup):
     dict(learnable_temperature=True),
     dict(ema_decay=0.99), dict(ema_decay=0.99, ema_eval=False),
     dict(text_trainable=True),   # attention_dropout 0.1 in train mode
+    dict(loss_chunk_size=4),
+    dict(contrastive_loss="clip", loss_chunk_size=4),
+    dict(remat=True),
+    dict(accum_steps=2),
+    dict(accum_steps=2, true_global_contrastive=False),
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_ported_options_run(kw):
-    """Each option that raised before this slice runs a train step and an
-    eval step with finite metrics. A trained text tower reads tokens with a
-    padding mask, its attention dropout on. The learnable temperature's
-    scale starts above log(100) and is clamped after the update; with
-    ema_eval the eval reads the EMA (a live weight set to NaN leaves it
-    finite), without it the live weights."""
+    """Each option that raised before it was ported runs a train step and
+    an eval step with finite metrics. A trained text tower reads tokens
+    with a padding mask, its attention dropout on. The learnable
+    temperature's scale starts above log(100) and is clamped after the
+    update; with ema_eval the eval reads the EMA (a live weight set to NaN
+    leaves it finite), without it the live weights. ``accum_steps`` runs
+    GradCache, or the per-microbatch loss without
+    ``true_global_contrastive``."""
+    kw = dict(kw)
+    step_kw = {k: kw.pop(k) for k in ("true_global_contrastive",) if k in kw}
     _, tcfg = _configs(**kw)
     model = CLIPModel(tcfg, DistilBertConfig(**TEXT), ViTConfig(**VIT),
                       device="cpu").init_weights(torch.Generator()
@@ -576,7 +577,8 @@ def test_ported_options_run(kw):
     opt = make_optimizer(tcfg, model)
     state = TrainState.create(model, opt)
     batch = _torch_batch(_batch(12, cached=not tcfg.text_trainable))
-    metrics = make_train_step(model, opt, tcfg)(state, batch)
+    metrics = make_train_step(model, opt, tcfg, accum_steps=tcfg.accum_steps,
+                              **step_kw)(state, batch)
     assert state.step == 1
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     if tcfg.learnable_temperature:
