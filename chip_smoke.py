@@ -56,7 +56,17 @@ kernels' launch counts set to 0 just before and read just after:
   against the unchunked ones at 16,384 rows with their peak memory,
   GradCache against the one-pass step on the card, #1 giving the same
   bits twice (what remat's recompute needs), and the card's GradCache
-  step against the CPU's one pass over the batch.
+  step against the CPU's one pass over the batch;
+* the reference recipe: ``coco_full_config`` as the preset is (the
+  ResNet-50 with train-mode BatchNorm, the frozen DistilBERT in train
+  mode, AdamW, batch 256) on train and valid ``DeviceStore``s made on the
+  card (deduped images, token tables): the bare step with its time,
+  stages, peak memory and launches (none in the train step, #2 in the eval
+  step) and the running statistics moved; ``Trainer.fit`` for two epochs
+  with epoch and step checkpoints, the metric writer and a restore; a
+  mid-epoch resume that must end bit for bit where the uninterrupted run
+  does (deterministic cuDNN); one step at B=8 against the CPU; and the
+  trained model served through ``RetrievalService`` against the CPU.
 
 Last, it times each kernel at the training and pretraining shapes (and
 #1 / #3 at the 32k recipe's encoder, 6 heads of 64) beside
@@ -78,6 +88,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -300,7 +311,8 @@ def check_kernels() -> dict:
 # tiles each way), Sk <= 64 < Sq with a ragged last stage, and other head
 # dims: 64 (tensor-core bodies), 80 (the scalar bodies, which also serve
 # fp32 and unaligned strides) and 256 (the scalar bodies' wide instances;
-# DistilBERT with 3 heads).
+# DistilBERT with 3 heads); and the reference recipe's eval and serving
+# text tower (DistilBERT's 12 heads of 64, S=200, strided, padding mask).
 FLASH_CASES = ((16, 6, 64, 64, True, "strided", 128),
                (16, 6, 64, 64, True, "plain", 128),
                (256, 2, 147, 50, False, "decoder", 128),
@@ -310,7 +322,8 @@ FLASH_CASES = ((16, 6, 64, 64, True, "strided", 128),
                (4, 2, 77, 77, True, "plain", 64),
                (2, 3, 33, 40, True, "plain", 80),
                (16, 3, 64, 64, True, "strided", 256),
-               (4, 2, 147, 50, True, "decoder", 256))
+               (4, 2, 147, 50, True, "decoder", 256),
+               (256, 12, 200, 200, True, "strided", 64))
 
 
 def _bwd_close(name: str, got, want, dtype) -> float:
@@ -3025,6 +3038,539 @@ def check_pretrain_step_against_cpu(rng: np.random.Generator) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phases 16-17: the reference recipe (coco_full_config: ResNet-50 + frozen
+# DistilBERT in train mode, AdamW) through the Trainer, on stores on the card
+# ---------------------------------------------------------------------------
+
+REF_BATCH = 256
+REF_SEQ = 200        # coco_full_config's max_length
+REF_TRAIN = (4096, 2048)   # rows, unique images (each caption's image twice)
+REF_VALID = (1024, 512)
+REF_DATA_SEED = 13
+REF_RUN_SEED = 14
+# The train step runs none of the seven kernels: the image tower is the
+# ResNet (cuDNN) and the frozen text tower's train-mode attention drops out
+# on the plain route. The eval step's text tower runs #2 once a layer.
+REF_TRAIN_LAUNCHES = dict.fromkeys(LAUNCHES_PER_STEP, 0)
+REF_EVAL_LAUNCHES = dict(REF_TRAIN_LAUNCHES, flash_attention=6)
+
+
+def build_reference_model(batch: int, compute_dtype: str, device: str,
+                          seed: int = 0, text_config=None,
+                          resnet_shape=None, **cfg):
+    """``coco_full_config`` (with ``cfg`` over it) as the port builds it:
+    the ResNet-50 (or ``resnet_shape``), DistilBERT as ``text_config``
+    (default: HF's, dropout 0.1), random weights from a CPU generator."""
+    from mae_clip_torch import coco_full_config
+    from mae_clip_torch.models import CLIPModel, DistilBertConfig
+
+    cfg = coco_full_config(batch_size=batch, compute_dtype=compute_dtype,
+                           **cfg)
+    model = CLIPModel(cfg, text_config or DistilBertConfig(), device=device,
+                      resnet_shape=resnet_shape)
+    return model.init_weights(torch.Generator().manual_seed(seed))
+
+
+def reference_stores(train=REF_TRAIN, valid=REF_VALID, size: int = 224,
+                     seq: int = REF_SEQ, seed: int = REF_DATA_SEED,
+                     device=None) -> tuple:
+    """Train and valid ``DeviceStore``s made on the card from a seeded
+    generator: uint8 images, each held once and mapped to two caption rows,
+    and (rows, seq) token ids with 8-40 real tokens ([CLS] ... [SEP], then
+    padding) and their masks."""
+    from mae_clip_torch.data.device_store import DeviceStore
+
+    device = DEVICE if device is None else device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    stores = []
+    for rows, images in (train, valid):
+        img = torch.randint(0, 256, (images, size, size, 3), generator=gen,
+                            device=device, dtype=torch.uint8)
+        length = torch.randint(8, min(41, seq + 1), (rows,), generator=gen,
+                               device=device)
+        mask = (torch.arange(seq, device=device)[None] < length[:, None])
+        ids = torch.randint(1000, 30000, (rows, seq), generator=gen,
+                            device=device) * mask
+        ids[:, 0] = 101
+        ids[torch.arange(rows, device=device), length - 1] = 102
+        stores.append(DeviceStore(
+            {"image": img, "input_ids": ids, "attention_mask": mask.long()},
+            maps={"image": torch.arange(rows, device=device)
+                  // (rows // images)}, device=device))
+    return tuple(stores)
+
+
+def _loader_fns(train_rows: int, valid_rows: int, batch: int):
+    from mae_clip_torch.data.device_store import make_index_loader
+
+    return (lambda epoch: make_index_loader(train_rows, batch, True,
+                                            seed=epoch),
+            lambda epoch: make_index_loader(valid_rows, batch))
+
+
+def _buffers(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def train_reference_recipe() -> tuple:
+    """Phase 16 (a) and (b). (a) the bare step of ``coco_full_config`` at
+    batch 256 on batches gathered from the train store: 3 warm-up steps,
+    then ms a step (20 synchronised, 20 back to back), 5 profiled steps,
+    peak memory, the kernels' launches in the train and the eval step, the
+    running statistics moved. (b) ``Trainer.fit`` for 2 epochs of 16 train
+    and 4 valid steps with epoch and step checkpoints and the metric writer
+    in a temporary directory, then a new Trainer's ``restore`` of the last
+    epoch. Returns (launches by path, result, model, stores, initial
+    weights)."""
+    import shutil
+    import tempfile
+
+    from mae_clip_torch.data.device_store import make_index_loader
+    from mae_clip_torch.train import (CheckpointManager, MetricWriter,
+                                      StepCheckpointManager, Trainer,
+                                      TrainState, make_eval_step,
+                                      make_optimizer, make_train_step)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_reference_model(REF_BATCH, "bfloat16", "cuda")
+    initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    train_store, valid_store = reference_stores()
+    setup_s = time.perf_counter() - t0
+    cfg, dev = model.cfg, model.device
+    log(f"  model and stores in {setup_s:.1f} s: train store "
+        f"{train_store.nbytes / 1e6:.1f} MB ({train_store.n} rows), valid "
+        f"{valid_store.nbytes / 1e6:.1f} MB ({valid_store.n} rows)")
+
+    def gathered(store, rows, seed):
+        out = []
+        for b in list(make_index_loader(rows, REF_BATCH, True, seed))[:2]:
+            batch = store.gather(b["indices"])
+            batch["valid"] = torch.from_numpy(b["valid"]).to(dev)
+            out.append(batch)
+        return out
+
+    batches = gathered(train_store, REF_TRAIN[0], 0)
+    valid_batches = gathered(valid_store, REF_VALID[0], 0)
+    opt = make_optimizer(cfg, model)
+    state = TrainState.create(model, opt, seed=cfg.seed)
+    step, eval_step = make_train_step(model, opt, cfg), make_eval_step(model,
+                                                                       cfg)
+    stats0 = _buffers(model)
+    steps = 0
+
+    def run(batch):
+        nonlocal steps
+        steps += 1
+        return step(state, batch)
+
+    counts = _reset_counts()
+    losses = [float(run(batches[i % 2])["loss"]) for i in range(3)]
+    synced = [_synced_ms(lambda i=i: run(batches[i % 2])) for i in range(20)]
+    pipelined = _synced_ms(lambda: [run(batches[i % 2])
+                                    for i in range(20)]) / 20
+    prof = profile_window(lambda: [run(batches[i % 2]) for i in range(5)],
+                          top=10, spans=STEP_SPANS,
+                          check=lambda window: step_stages(window, 5))
+    train_launches = _read_counts(counts)
+    losses.append(float(run(batches[0])["loss"]))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite losses {losses}")
+    for name, n in REF_TRAIN_LAUNCHES.items():
+        if train_launches[name] != n * steps:
+            raise AssertionError(f"train step: {name} launched "
+                                 f"{train_launches[name]} times in {steps}")
+    moved = {k: float((v - stats0[k]).abs().max())
+             for k, v in _buffers(model).items()}
+    if not all(m > 0 for m in moved.values()):
+        raise AssertionError("running statistics that did not move: "
+                             f"{[k for k, m in moved.items() if m == 0]}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counts = _reset_counts()
+    eval_ms = [_synced_ms(lambda i=i: eval_step(state, valid_batches[i % 2]))
+               for i in range(4)]
+    eval_launches = _read_counts(counts)
+    for name, n in REF_EVAL_LAUNCHES.items():
+        if eval_launches[name] != n * 4:
+            raise AssertionError(f"eval step: {name} launched "
+                                 f"{eval_launches[name]} times in 4")
+    median = float(np.median(synced))
+    stages = step_stages(prof, 5)
+    bare = dict(batch=REF_BATCH, steps=steps, step_ms_median=median,
+                step_ms_min=float(np.min(synced)),
+                step_ms_pipelined=pipelined,
+                pairs_per_s=REF_BATCH / median * 1e3,
+                pairs_per_s_pipelined=REF_BATCH / pipelined * 1e3,
+                busy_share=prof["busy_share"],
+                device_ms_per_step=prof["device_busy_ms"] / 5,
+                stages=stages, peak_memory_gb=peak,
+                eval_step_ms_median=float(np.median(eval_ms)),
+                losses=losses, bn_buffers_moved=len(moved),
+                profile_5_steps=prof)
+    log(f"  (a) step ms (each synchronised, median of 20) {median:.3f}, min "
+        f"{bare['step_ms_min']:.3f}; 20 back to back {pipelined:.3f} ms a "
+        f"step; pairs/s {bare['pairs_per_s']:.1f}; device "
+        f"{bare['device_ms_per_step']:.3f} ms a step, busy "
+        f"{prof['busy_share']:.3f}; peak {peak:.2f} GB; eval step "
+        f"{bare['eval_step_ms_median']:.3f} ms; losses {losses}")
+    log(f"  (a) stages {json.dumps(stages)}")
+    log(f"  (a) launches: train step {train_launches}; eval step "
+        f"{eval_launches}; {len(moved)} BatchNorm buffers moved")
+    log(f"  (a) profiled 5 steps: {json.dumps(prof)}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ref_")
+    try:
+        fit_cfg = cfg.replace(epochs=2, checkpoint_every=1,
+                              checkpoint_every_steps=4,
+                              metric_fetch_every=16)
+        writer = MetricWriter(f"{tmp}/logs")
+        trainer = Trainer(fit_cfg, model,
+                          checkpoint_manager=CheckpointManager(f"{tmp}/ep"),
+                          step_checkpoint_manager=StepCheckpointManager(
+                              f"{tmp}/steps"),
+                          writer=writer, train_store=train_store,
+                          valid_store=valid_store)
+        t0 = time.perf_counter()
+        history = trainer.fit(*_loader_fns(REF_TRAIN[0], REF_VALID[0],
+                                           REF_BATCH))
+        fit_s = time.perf_counter() - t0
+        writer.close()
+        with open(f"{tmp}/logs/metrics.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        if trainer.state.step != 32 or len(records) != 2 or not np.isfinite(
+                history["train_loss"] + history["valid_loss"]).all():
+            raise AssertionError(f"fit: {trainer.state.step} steps, "
+                                 f"history {history}")
+        kept = {"epochs": trainer.checkpoint_manager.all_steps(),
+                "steps": trainer.step_checkpoint_manager.all_steps()}
+        if kept != {"epochs": [0, 1], "steps": [28, 32]} and kept != {
+                "epochs": [1], "steps": [28, 32]}:
+            raise AssertionError(f"checkpoints kept: {kept}")
+        t0 = time.perf_counter()
+        trainer.step_checkpoint_manager.save(10 ** 6, trainer.state, {})
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(f"{tmp}/steps/{10 ** 6}.pt")
+        live = {k: v.clone() for k, v in model.state_dict().items()}
+        other = Trainer(fit_cfg, model,
+                        checkpoint_manager=CheckpointManager(f"{tmp}/ep"))
+        t0 = time.perf_counter()
+        epoch = other.restore()
+        restore_s = time.perf_counter() - t0
+        if epoch != 1 or other.state.step != 32 or not all(
+                torch.equal(v, live[k])
+                for k, v in model.state_dict().items()):
+            raise AssertionError("the last epoch's checkpoint does not "
+                                 "restore the trained state")
+    finally:
+        shutil.rmtree(tmp)
+    train_s = [r["time/train_s"] for r in records]
+    steps_s, saves_s = 16 * median / 1e3, 4 * save_s
+    fit = dict(history=history, records=records, fit_s=fit_s,
+               checkpoints_kept=kept, checkpoint_bytes=ckpt_bytes,
+               checkpoint_save_s=save_s, restore_s=restore_s,
+               epoch_train_s=train_s, steps_16_s=steps_s,
+               rest_share=[1 - steps_s / s for s in train_s],
+               trainer_share=[1 - (steps_s + saves_s) / s for s in train_s])
+    log(f"  (b) history {json.dumps(history)}")
+    for r in records:
+        log(f"  (b) metrics.jsonl {json.dumps(r)}")
+    log(f"  (b) fit {fit_s:.2f} s; time/train_s {train_s} against 16 bare "
+        f"steps {steps_s:.3f} s: the rest (4 step checkpoints and the "
+        f"Trainer) {[round(x, 4) for x in fit['rest_share']]} of each "
+        f"epoch, less 4 saves timed alone "
+        f"{[round(x, 4) for x in fit['trainer_share']]}; a checkpoint "
+        f"{ckpt_bytes / 1e6:.1f} MB, saved in {save_s:.3f} s, an epoch "
+        f"restored in {restore_s:.3f} s")
+    result = dict(setup_s=setup_s, bare_step=bare, fit=fit)
+    launches = {"training_reference": train_launches,
+                "eval_reference": eval_launches}
+    return launches, result, model, (train_store, valid_store), initial
+
+
+def check_mid_epoch_resume(batch: int = REF_BATCH, size: int = 224,
+                           train_batches: int = 16, stop_after: int = 8,
+                           valid_batches: int = 4, resnet_shape=None,
+                           directory: Optional[str] = None, model=None,
+                           initial: Optional[dict] = None,
+                           stores: Optional[tuple] = None) -> dict:
+    """Phase 16 (c): with deterministic cuDNN (restored after), two epochs
+    of ``Trainer.fit`` uninterrupted, then a run stopped after
+    ``stop_after`` batches of epoch 0 (a step checkpoint there) and a new
+    Trainer's ``restore_mid_epoch`` finishing it. The resumed run's
+    parameters, BatchNorm buffers and valid losses (and epoch 1's train
+    loss) must equal the uninterrupted run's bit for bit. Builds the model
+    and the stores when not given."""
+    import itertools
+    import shutil
+    import tempfile
+
+    from mae_clip_torch.train import StepCheckpointManager, Trainer
+
+    if model is None:
+        model = build_reference_model(batch, "bfloat16", "cuda",
+                                      resnet_shape=resnet_shape, size=size)
+        initial = {k: v.detach().clone()
+                   for k, v in model.state_dict().items()}
+    if stores is None:
+        stores = reference_stores((batch * train_batches,
+                                   batch * train_batches // 2),
+                                  (batch * valid_batches,
+                                   batch * valid_batches // 2), size=size)
+    cfg = model.cfg.replace(batch_size=batch, epochs=2, checkpoint_every=0,
+                            checkpoint_every_steps=stop_after,
+                            metric_fetch_every=16)
+    train_fn, valid_fn = _loader_fns(batch * train_batches,
+                                     batch * valid_batches, batch)
+    own = directory is None
+    directory = tempfile.mkdtemp(prefix="chip_smoke_resume_") if own \
+        else directory
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+
+    def trainer(path):
+        return Trainer(cfg, model, step_checkpoint_manager=(
+            StepCheckpointManager(path)), train_store=stores[0],
+            valid_store=stores[1])
+
+    try:
+        model.load_state_dict(initial)
+        torch.manual_seed(REF_RUN_SEED)
+        t0 = time.perf_counter()
+        want = trainer(f"{directory}/a").fit(train_fn, valid_fn)
+        straight_s = time.perf_counter() - t0
+        final = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(initial)
+        torch.manual_seed(REF_RUN_SEED)
+        trainer(f"{directory}/b").train_epoch(
+            itertools.islice(train_fn(0), stop_after))
+        torch.manual_seed(REF_RUN_SEED + 1)     # a new process's RNG
+        model.load_state_dict(initial)
+        resumed = trainer(f"{directory}/b")
+        epoch, done = resumed.restore_mid_epoch()
+        if (epoch, done, resumed.state.step) != (0, stop_after, stop_after):
+            raise AssertionError(f"restored at {(epoch, done)}, step "
+                                 f"{resumed.state.step}")
+        got = resumed.fit(train_fn, valid_fn, start_epoch=epoch,
+                          skip_batches=done)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = flags
+        if own:
+            shutil.rmtree(directory)
+    diff = {k: float((v.float() - final[k].float()).abs().max())
+            for k, v in model.state_dict().items()
+            if not torch.equal(v, final[k])}
+    same_losses = (got["valid_loss"] == want["valid_loss"]
+                   and got["train_loss"][1:] == want["train_loss"][1:])
+    log(f"  (c) uninterrupted {json.dumps(want)} in {straight_s:.2f} s; "
+        f"resumed after {stop_after} batches {json.dumps(got)}; tensors "
+        f"that differ: {len(diff)} of {len(final)}")
+    if diff or not same_losses:
+        raise AssertionError(f"the resumed run is not bit-identical: "
+                             f"losses {got} vs {want}, tensors "
+                             f"{dict(list(diff.items())[:8])}")
+    return dict(uninterrupted=want, resumed=got, tensors=len(final),
+                bn_buffers=sum(k.endswith("running_var") for k in final),
+                straight_s=straight_s, bit_identical=True)
+
+
+def _reference_batch(rng: np.random.Generator, batch: int, size: int
+                     ) -> dict:
+    return {"image": torch.from_numpy(rng.integers(
+                0, 256, (batch, size, size, 3), np.uint8)),
+            "input_ids": torch.from_numpy(rng.integers(
+                1000, 30000, (batch, TRAIN_SEQ))),
+            "attention_mask": _padding_mask(
+                torch.Generator().manual_seed(5), batch, TRAIN_SEQ,
+                "cpu").long(),
+            "valid": torch.ones(batch, dtype=torch.bool)}
+
+
+def _step_against_cpu(data: dict, resnet_shape,
+                      compute_dtype: str = "bfloat16",
+                      device: str = "cuda") -> dict:
+    """One reference-recipe step on ``data`` at dropout 0 on ``device``
+    (the card: in ``compute_dtype``, cuDNN, the kernels) and on the CPU
+    (fp32, plain versions) from the same weights: the metrics' relative
+    error, every trainable gradient's cosine (those 0 in exact arithmetic
+    held by size, as phase 7), and each BatchNorm buffer's change
+    ``||d_card - d_cpu|| / ||d_cpu||``. Which limits hold is the caller's
+    to decide."""
+    from mae_clip_torch.models import CLIPModel, DistilBertConfig
+    from mae_clip_torch.train import (TrainState, make_optimizer,
+                                      make_train_step)
+
+    batch, size = data["image"].shape[:2]
+    text_config = DistilBertConfig(dropout=0.0, attention_dropout=0.0)
+    card = build_reference_model(batch, compute_dtype, device, seed=1,
+                                 text_config=text_config,
+                                 resnet_shape=resnet_shape, dropout=0.0,
+                                 size=size)
+    cpu = CLIPModel(card.cfg.replace(compute_dtype="float32"),
+                    card.text_config, device="cpu",
+                    resnet_shape=card.resnet_shape)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    stats0 = {k: v.cpu() for k, v in _buffers(card).items()}
+    metrics, grads, deltas = [], [], []
+    for model in (card, cpu):
+        opt = make_optimizer(model.cfg, model)
+        m = make_train_step(model, opt, model.cfg)(
+            TrainState.create(model, opt), data)
+        metrics.append({k: float(v) for k, v in m.items()})
+        grads.append({n: p.grad.float().cpu()
+                      for n, p in model.named_parameters() if p.requires_grad})
+        deltas.append({k: v.cpu() - stats0[k]
+                       for k, v in _buffers(model).items()})
+    loss_err = max(abs(metrics[0][k] - v) / abs(v)
+                   for k, v in metrics[1].items())
+    big = max(float(g.norm()) for g in grads[1].values())
+    zero = {n for n, g in grads[1].items() if float(g.norm()) <= 1e-6 * big}
+    stray = max([float(grads[0][n].norm()) / big for n in zero] or [0.0])
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        g.flatten(), grads[1][n].flatten(), dim=0))
+        for n, g in grads[0].items() if n not in zero}
+    stat_err = {k: float((d - deltas[1][k]).norm() / deltas[1][k].norm())
+                for k, d in deltas[0].items()}
+    worst_cos = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+    worst_stat = sorted(stat_err.items(), key=lambda kv: -kv[1])[:5]
+    reading = dict(
+        resnet_shape=resnet_shape or "resnet50", batch=batch, size=size,
+        compute_dtype=compute_dtype, device=device, metrics=metrics, loss_rel_err=loss_err,
+        min_grad_cosine=worst_cos[0][1], lowest_grad_cosines=worst_cos,
+        exact_zero_grads=len(zero), exact_zero_grad_share=stray,
+        max_stat_change_err=worst_stat[0][1], worst_stat_changes=worst_stat,
+        grads=len(cos), bn_buffers=len(stat_err))
+    log(f"  {reading['resnet_shape']} at B={batch}, {size}^2, "
+        f"{compute_dtype} on {device}: metrics {metrics[0]} vs CPU fp32 "
+        f"{metrics[1]} "
+        f"(rel err {loss_err:.3g}); lowest gradient cosines {worst_cos} "
+        f"({len(zero)} exact-zero gradients at {stray:.3g} of the "
+        f"largest); largest running-statistics change errors {worst_stat}")
+    return reading
+
+
+SHALLOW_RESNET = ((1, 1, 1, 1), (64, 128, 256, 512))
+# The card's bf16 step may fall below the CPU's own bf16 step (both held
+# against the CPU's fp32 step on the same batch) by at most this much in
+# its lowest gradient cosine: the two round in other orders (cuDNN's and
+# the CPU's convolutions and sums), and at one bottleneck a stage both
+# read ~0.92.
+BF16_GRAD_MARGIN = 0.05
+
+
+def _limits(reading: dict, grads: bool) -> list:
+    """Phase 7's limits a reading misses: the metrics within 2e-2
+    relative, the running statistics' change within 2e-2 of its size and,
+    with ``grads``, every gradient cosine >= 0.99 (exact-zero gradients
+    below 1e-3 of the largest)."""
+    missed = []
+    if reading["loss_rel_err"] > 2e-2:
+        missed.append("metrics")
+    if reading["max_stat_change_err"] > 2e-2:
+        missed.append("running statistics")
+    if grads and (reading["min_grad_cosine"] < 0.99
+                  or reading["exact_zero_grad_share"] > 1e-3):
+        missed.append("gradient cosines")
+    return missed
+
+
+def check_resnet_step_against_cpu(rng: np.random.Generator, batch: int = 8,
+                                  size: int = 224,
+                                  resnet_shape=None,
+                                  shallow=SHALLOW_RESNET) -> dict:
+    """Phase 17 (a): one reference-recipe step, the card against the CPU's
+    fp32 step, at phase 7's limits (``_limits``).
+
+    In bf16 the gradients of a train-mode BatchNorm tower at random
+    weights are not held to the cosine limit: the bf16 forward drifts by
+    ~1 % a stage (0.3 % after the stem, 4.3 % after stage 4, measured on
+    the CPU in bf16) and every train-mode BatchNorm renormalises the drift,
+    and the pooled features of noise images are nearly parallel (cosine
+    ~0.95), so the contrastive gradient is a small rest: the CPU's own bf16
+    step, with no card and no kernel, gives gradient cosines of 0.08 at
+    full depth and 0.925 with one bottleneck a stage. So the bf16 readings
+    (full depth, then ``shallow``) are recorded with what they miss; the
+    shallow one must hold the metrics' and the statistics' limits, and its
+    lowest gradient cosine must be within ``BF16_GRAD_MARGIN`` of the CPU's
+    own bf16 step on the same batch (which holds the card's bf16
+    backward: cuDNN's convolutions and the BatchNorms). The card's
+    fp32 step (TF32 off, the same cuDNN and BatchNorm path) at the full
+    depth must hold all of phase 7's limits, the gradient cosines
+    included."""
+    data = _reference_batch(rng, batch, size)
+    bf16 = [_step_against_cpu(data, resnet_shape)]
+    if _limits(bf16[0], True):
+        bf16.append(_step_against_cpu(data, shallow))
+    cpu_bf16 = _step_against_cpu(data, resnet_shape if len(bf16) == 1
+                                 else shallow, device="cpu")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        fp32 = _step_against_cpu(data, resnet_shape, "float32")
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    for r in bf16 + [cpu_bf16, fp32]:
+        r["misses"] = _limits(r, True)
+    floor = cpu_bf16["min_grad_cosine"] - BF16_GRAD_MARGIN
+    bf16_misses = _limits(bf16[-1], False)
+    if bf16[-1]["min_grad_cosine"] < floor:
+        bf16_misses.append(f"lowest gradient cosine below the CPU's bf16 "
+                           f"step's less {BF16_GRAD_MARGIN} ({floor:.4f})")
+    log(f"  bf16 readings miss {[r['misses'] for r in bf16]}; the CPU's own "
+        f"bf16 step's lowest gradient cosine "
+        f"{cpu_bf16['min_grad_cosine']:.4f}, the card's "
+        f"{bf16[-1]['min_grad_cosine']:.4f} (at least {floor:.4f}); the "
+        f"fp32 step misses {fp32['misses']}")
+    if bf16_misses or fp32["misses"]:
+        raise AssertionError(f"card vs CPU reference-recipe step: bf16 "
+                             f"misses {bf16_misses}: {bf16[-1]}, CPU bf16 "
+                             f"{cpu_bf16}, fp32 {fp32}")
+    return dict(bf16=bf16, cpu_bf16=cpu_bf16, fp32=fp32)
+
+
+def check_resnet_serving_against_cpu(model, rng: np.random.Generator) -> dict:
+    """Phase 17 (b): a trained ResNet CLIP (running statistics moved by its
+    steps) served through ``RetrievalService``: gallery and query
+    embeddings on the card against the CPU's fp32 model, row cosine >=
+    0.99, and a query answered from the card's gallery."""
+    from mae_clip_torch.data.tokenizer import WordPieceTokenizer, build_vocab
+    from mae_clip_torch.models import CLIPModel
+    from mae_clip_torch.serve import RetrievalService
+
+    model.eval()
+    cpu = CLIPModel(model.cfg.replace(compute_dtype="float32"),
+                    model.text_config, device="cpu",
+                    resnet_shape=model.resnet_shape)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tok = WordPieceTokenizer(build_vocab(CORPUS * 4, vocab_size=256))
+    size = model.cfg.size
+    images = rng.integers(0, 256, (16, size, size, 3), np.uint8)
+    card_svc = RetrievalService(model, tok, max_length=FIXED_LENGTH)
+    cpu_svc = RetrievalService(cpu, tok, max_length=FIXED_LENGTH)
+    worst = {}
+    for what, fn in (("gallery", lambda s: s.embed_images(images)),
+                     ("queries", lambda s: s.embed_text(CORPUS))):
+        a, b = torch.from_numpy(fn(card_svc)), torch.from_numpy(fn(cpu_svc))
+        worst[what] = float(torch.nn.functional.cosine_similarity(
+            a, b, dim=-1).min())
+    gallery = card_svc.embed_images(images)
+    served = RetrievalService(model, tok, gallery=gallery,
+                              max_length=FIXED_LENGTH).retrieve(CORPUS[0], 4)
+    log(f"  (b) lowest row cosine card bf16 vs CPU fp32: {worst}; retrieve "
+        f"{served}")
+    if min(worst.values()) < 0.99 or len(served["matches"]) != 4:
+        raise AssertionError(f"ResNet serving card vs CPU: {worst}, "
+                             f"{served}")
+    return worst
+
+
 KERNELS = {  # name: (TPU kernel it replaces, source)
     "qkv_packed_attention": ("mae_clip_tpu/ops/attention.py:303",
                              "mae_clip_torch/csrc/attention_fwd.cu"),
@@ -3157,6 +3703,30 @@ def main() -> int:
     t_phase = time.perf_counter()
     large["checks"] = check_large_batch_options(rng)
     log(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    log("phase 16: the reference recipe on one card (coco_full_config: "
+        "ResNet-50 with train-mode BatchNorm, frozen DistilBERT in train "
+        "mode, AdamW, B=256, bf16) from stores on the card: (a) the bare "
+        "step, (b) Trainer.fit with checkpoints, (c) a mid-epoch resume")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    ref_launches, ref, ref_model, ref_stores, ref_initial = \
+        train_reference_recipe()
+    ref["resume"] = check_mid_epoch_resume(model=ref_model,
+                                           initial=ref_initial,
+                                           stores=ref_stores)
+    del ref_initial, ref_stores
+    log(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    log("phase 17: the reference recipe against the CPU: (a) one step at "
+        "B=8, (b) serving a trained ResNet CLIP")
+    t_phase = time.perf_counter()
+    ref["against_cpu"] = check_resnet_step_against_cpu(rng)
+    ref["serving_min_cosine"] = check_resnet_serving_against_cpu(ref_model,
+                                                                 rng)
+    del ref_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
 
     log("phase 5: kernel times (serving, training, pretraining shapes, the "
         "block stacks' GEMM products, then "
@@ -3177,13 +3747,17 @@ def main() -> int:
     summary = {k: v for k, v in large.items() if k != "profile_2_steps"}
     log(f"end to end: training, large_batch_mesh_config "
         f"{json.dumps(summary)}")
+    summary = dict(ref, bare_step={k: v for k, v in ref["bare_step"].items()
+                                   if k != "profile_5_steps"})
+    log(f"end to end: the reference recipe, coco_full_config "
+        f"{json.dumps(summary)}")
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
 
     by_path = {"serving": served, "training": launches,
                "pretraining": pre_launches, "training_fused": fused_launches,
                "training_fused_fwd": fwd_launches,
                "training_siglip": siglip_launches,
-               "training_large_batch": large_launches}
+               "training_large_batch": large_launches, **ref_launches}
     kernels = []
     for name, (replaces, source) in KERNELS.items():
         extra = {}

@@ -1,10 +1,13 @@
 """PyTorch/CUDA port of ``mae_clip_tpu`` for NVIDIA Hopper (H100).
 
-This first part of the port serves: text and image embedding, text->image
-retrieval over an fp32 or int8 gallery, and zero-shot classification, with
-the ViT/MAE image tower and the DistilBERT text tower. Attention on a CUDA
-tensor runs hand-written kernels (``csrc/attention_fwd.cu``); on a CPU
-tensor it runs their plain PyTorch versions. Training is not ported yet.
+It serves (text and image embedding, text->image retrieval over an fp32
+or int8 gallery, zero-shot classification) and trains (the CLIP and MAE
+steps with their options, GradCache accumulation, and the epoch loop
+``train.Trainer`` with its checkpoints and device store) with the ViT/MAE
+or ResNet-50 image tower and the DistilBERT text tower. Attention, the
+masked patch embedding and the fused block stacks run hand-written
+kernels on a CUDA tensor (``csrc/``) and their plain PyTorch versions on
+a CPU tensor.
 
 The package imports nothing of ``mae_clip_tpu`` or JAX.
 """

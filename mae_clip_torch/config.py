@@ -7,7 +7,12 @@ The field comments below were written for the JAX package; they describe
 what each knob means, not how the port runs, and they carry no
 measurement (the port's are in ``PERF.md``). Of the TPU-specific fields
 the port reads ``compute_dtype``, ``param_dtype``, ``gelu_impl``,
-``image_heads``, ``text_heads``, ``fused_blocks`` and ``remat``.
+``image_heads``, ``text_heads``, ``fused_blocks``, ``remat``, and in the
+``Trainer`` ``metric_fetch_every`` and ``steps_per_call`` (when the losses
+are read), and ``mesh`` only to refuse more than one device. It reads
+neither ``use_pallas`` nor ``mae.decoder_attn_impl`` (they choose between
+routes that compute the same function) nor ``device_data*`` (the caller
+builds a ``DeviceStore``).
 
 Field names and default values intentionally mirror the reference's flat config
 module (reference: config.py:1-37) so that users of the reference find the same

@@ -1,7 +1,12 @@
 """Dual-tower CLIP model (``mae_clip_tpu/models/clip.py``).
 
-Image tower -> ProjectionHead(384/768 -> projection_dim), DistilBERT CLS ->
-ProjectionHead(768 -> projection_dim). With MAE enabled the image tower is a
+Image tower -> ProjectionHead(384/768/2048 -> projection_dim), DistilBERT
+CLS -> ProjectionHead(768 -> projection_dim). With ``model_name='resnet50'``
+the image tower is the ResNet-50 (``models/resnet.py``; ``resnet_shape``
+gives other stage sizes and widths, as the JAX model's field does), whose
+BatchNorms take batch statistics and update their running ones in train
+mode (``forward(train=True)``, ``encode_image(train=True)``) and read the
+running ones otherwise. With MAE enabled the image tower is a
 ``MAEViT``: ``forward`` runs its masked pass (and, with
 ``clip_from_masked=False``, a separate full pass for the contrastive
 features), ``encode_image`` its full pass. ``forward`` returns the
@@ -9,12 +14,11 @@ embeddings and the losses: the contrastive loss ``cfg.contrastive_loss``
 selects (soft-target InfoNCE, the hard-label CLIP loss or SigLIP) and the
 norm-pix MAE loss. The SigLIP (``logit_scale`` + ``logit_bias``) and
 learnable-temperature (``logit_scale``) parameters are created as in the
-JAX package and trained in the "logit" group. The ResNet50 tower is not
-ported yet.
+JAX package and trained in the "logit" group.
 
 ``cfg.remat`` recomputes the towers' blocks in the backward (the ViT or
 MAE encoder's and DistilBERT's, per block; not the MAE decoder's or a
-fused stack's), as the JAX package's ``nn.remat``.
+fused stack's, nor a ResNet block's), as the JAX package's ``nn.remat``.
 
 A frozen tower (``trainable`` / ``text_trainable`` False) has
 ``requires_grad`` off, and with ``frozen_text_eval_mode`` the text tower
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -36,6 +40,7 @@ from mae_clip_torch.models.distilbert import DistilBertConfig, TextEncoder
 from mae_clip_torch.models.layers import dtype_of, init_weights
 from mae_clip_torch.models.mae import MAEDecoderConfig, MAEViT
 from mae_clip_torch.models.projection import ProjectionHead
+from mae_clip_torch.models.resnet import ResNet, resnet50
 from mae_clip_torch.models.vit import (ViTConfig, ViTEncoder,
                                        _resolved_vit_config)
 from mae_clip_torch.ops import losses as losses_lib
@@ -71,7 +76,9 @@ class CLIPModel(nn.Module):
     def __init__(self, cfg: Config,
                  text_config: DistilBertConfig = DistilBertConfig(),
                  vit_config: Optional[ViTConfig] = None,
-                 device: str = "cuda"):
+                 device: str = "cuda",
+                 resnet_shape: Optional[Tuple[Sequence[int],
+                                              Sequence[int]]] = None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -85,17 +92,25 @@ class CLIPModel(nn.Module):
             text_config = dataclasses.replace(text_config,
                                               n_heads=cfg.text_heads)
         self.text_config, self.vit_config = text_config, vit_config
+        self.resnet_shape = resnet_shape
 
         if cfg.model_name == "resnet50":
-            raise NotImplementedError("the ResNet50 image tower is not ported")
-        vcfg = _resolved_vit_config(cfg, vit_config)
-        self.image_encoder = (mae_vit_for(cfg, vcfg, device)
-                              if cfg.mae.enabled
-                              else ViTEncoder(vcfg, dtype,
-                                              block_impl=cfg.fused_blocks,
-                                              remat=cfg.remat))
+            if cfg.mae.enabled:
+                raise ValueError("MAE requires a ViT image tower")
+            self.image_encoder = (resnet50(dtype) if resnet_shape is None
+                                  else ResNet(tuple(resnet_shape[0]),
+                                              tuple(resnet_shape[1]), dtype))
+            image_dim = self.image_encoder.out_dim
+        else:
+            vcfg = _resolved_vit_config(cfg, vit_config)
+            self.image_encoder = (mae_vit_for(cfg, vcfg, device)
+                                  if cfg.mae.enabled
+                                  else ViTEncoder(vcfg, dtype,
+                                                  block_impl=cfg.fused_blocks,
+                                                  remat=cfg.remat))
+            image_dim = vcfg.dim
         self.text_encoder = TextEncoder(text_config, dtype, remat=cfg.remat)
-        self.image_projection = ProjectionHead(vcfg.dim, cfg.projection_dim,
+        self.image_projection = ProjectionHead(image_dim, cfg.projection_dim,
                                                cfg.dropout, dtype)
         self.text_projection = ProjectionHead(text_config.dim,
                                               cfg.projection_dim,
@@ -132,8 +147,14 @@ class CLIPModel(nn.Module):
         the logit scalars keep their fixed initial values."""
         return init_weights(self, generator)
 
-    def encode_image(self, images: torch.Tensor) -> torch.Tensor:
-        """Image features before projection; the full pass for MAE towers."""
+    def encode_image(self, images: torch.Tensor,
+                     train: bool = False) -> torch.Tensor:
+        """Image features before projection; the full pass for MAE towers.
+        ``train`` is JAX's flag for a ResNet tower's BatchNorm: False (the
+        default, serving) reads the running statistics whatever the
+        module's mode."""
+        if self.cfg.model_name == "resnet50":
+            return self.image_encoder(images, train=train)
         if self.cfg.mae.enabled:
             return self.image_encoder.encode_full(images)
         return self.image_encoder(images)

@@ -61,13 +61,46 @@ microbatch draws its own masks). Under GradCache the two spans cover
 pass 1 with the loss and pass 2; the legacy mode opens them once per
 microbatch.
 
-The Trainer, checkpoints and the cross-device losses are later slices.
+A BatchNorm tower (ResNet) trains on each forward's batch statistics and
+updates its running ones as the JAX step does: once a step in one pass;
+under accumulation once per microbatch, one after another (torch's
+gradient-accumulation semantics), in pass 1 alone under GradCache, whose
+pass 2 re-runs each microbatch in train mode and then puts back the
+buffers pass 1 left (JAX feeds pass 2 the step's first statistics and
+drops what it returns). The eval
+steps read the running statistics; on EMA weights too, since EMA
+averages parameters, not buffers (JAX's ``_eval_variables``).
+``Config.validate`` still refuses a ResNet with ``accum_steps > 1``, as
+JAX's does; the step factory runs one when called directly.
+
+``Trainer`` runs the epochs (reference main.py:85-126), as the JAX
+package's: ``fit`` runs train and valid epochs with count-weighted
+meters, steps the plateau scheduler (per epoch with recipe ``notebook``
+only, the reference's quirk, or per batch), saves the best-validation
+epochs (``checkpoint_every``) and rolling mid-epoch step checkpoints
+(``checkpoint_every_steps``), stops early (``early_stop_patience``),
+calls ``eval_fn`` every ``eval_every`` epochs and writes each epoch's
+scalars, the phase timings included. ``restore`` and
+``restore_mid_epoch`` resume a run; resumed mid-epoch it continues bit
+for bit. The losses stay on the model's device and are read
+``metric_fetch_every`` at a time in one ``torch.stack(...).tolist()``
+(every step when the batch scheduler or the progress bar needs them).
+Batches come from a host loader (pinned, then copied with
+``non_blocking``, the next one while the current step runs) or, as
+``{indices, valid}``, from a ``DeviceStore`` gathered on the card. With a
+store, ``steps_per_call`` K (JAX's K steps a call) only widens the read:
+the losses are read max(``metric_fetch_every``, K) at a time, and the
+losses, meters and state are those of K = 1. The cross-device paths (a
+mesh of more than one device) are not ported and raise.
 """
 
 from __future__ import annotations
 
+import inspect
 import math
-from typing import Callable, Dict, Optional
+import time
+import warnings
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,9 +109,13 @@ from torch.profiler import record_function
 from mae_clip_torch.config import Config
 from mae_clip_torch.data.images import normalize_pixels, normalize_uint8
 from mae_clip_torch.data.tokenizer import pad_token_batch
+from mae_clip_torch.models.layers import BatchNorm
 from mae_clip_torch.ops import augment
 from mae_clip_torch.ops import losses as losses_lib
 from mae_clip_torch.ops.masking import MaskingResult, random_masking
+from mae_clip_torch.train.metrics import AvgMeter, MetricWriter, Throughput
+from mae_clip_torch.train.optim import (ReduceLROnPlateau, current_lr,
+                                        make_optimizer, set_lr_scale)
 from mae_clip_torch.train.state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -193,6 +230,12 @@ def _microbatches(batch: Dict[str, torch.Tensor],
             for i in range(k)]
 
 
+def _batch_norm_buffers(model) -> list:
+    """The running statistics and counts of ``model``'s BatchNorms."""
+    return [b for m in model.modules() if isinstance(m, BatchNorm)
+            for b in m.buffers()]
+
+
 def _rng_states(generator: torch.Generator) -> tuple:
     """The states of ``generator`` and of torch's default generators (the
     CPU's and, on the card, the card's) that a microbatch draws from."""
@@ -290,6 +333,8 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, cfg: Config,
             mae_cot = torch.full((), cfg.mae.loss_weight / accum_steps,
                                  device=img.device)
             rows = img.shape[0] // accum_steps
+            stats = _batch_norm_buffers(model)
+            kept = [b.clone() for b in stats]
             for i, (mb, mb_masking) in enumerate(micro):   # pass 2
                 _set_rng_states(gen, rng[i])
                 out = _forward(model, mb, True, gen, cfg, mb_masking)
@@ -300,6 +345,9 @@ def make_train_step(model, optimizer: torch.optim.Optimizer, cfg: Config,
                     outs.append(out["mae_loss"])
                     cots.append(mae_cot)
                 torch.autograd.backward(outs, cots)
+            if stats:
+                with torch.no_grad():
+                    torch._foreach_copy_(stats, kept)
             # The loss-only parameters do not reach the embeddings: their
             # gradients are the loss pass's alone.
             for p, g in zip(extras.values(), d_extras):
@@ -408,3 +456,325 @@ def precompute_text_features(model, dataset,
                 torch.as_tensor(mask, device=model.device))
         out.append(feats.float().cpu().numpy()[:count])
     return np.concatenate(out) if out else np.zeros((0, 0), np.float32)
+
+
+def _mesh_devices(cfg: Config) -> int:
+    """How many devices ``cfg.mesh`` asks for explicitly (-1, "all
+    remaining", is the one the model is on)."""
+    return max(cfg.mesh.data, 1) * max(cfg.mesh.model, 1)
+
+
+class Trainer:
+    """The epoch loop over ``model`` on its device (module docstring).
+    ``objective``: ``"clip"`` (a ``CLIPModel``) or ``"mae"`` (a standalone
+    ``MAEViT``; batches need only ``image`` and ``valid``). ``optimizer``
+    defaults to ``make_optimizer(cfg, model)``."""
+
+    def __init__(self, cfg: Config, model, optimizer=None,
+                 checkpoint_manager=None,
+                 writer: Optional[MetricWriter] = None,
+                 progress: bool = False, objective: str = "clip",
+                 train_store=None, valid_store=None,
+                 step_checkpoint_manager=None):
+        if objective not in ("clip", "mae"):
+            raise ValueError(f"unknown objective {objective!r}")
+        if _mesh_devices(cfg) > 1:
+            raise NotImplementedError(
+                f"a mesh of {_mesh_devices(cfg)} devices: the port trains "
+                "on one device")
+        self.cfg, self.model = cfg, model
+        self.device = next(model.parameters()).device
+        self.optimizer = (optimizer if optimizer is not None
+                          else make_optimizer(cfg, model))
+        self.state = TrainState.create(model, self.optimizer, seed=cfg.seed,
+                                       cfg=cfg)
+        if objective == "mae":
+            if cfg.accum_steps > 1:
+                raise ValueError(
+                    "accum_steps > 1 is a contrastive-memory recipe "
+                    "(GradCache); MAE pretraining has no cross-microbatch "
+                    "coupling: lower batch_size instead")
+            self.train_step = make_mae_pretrain_step(model, self.optimizer,
+                                                     cfg)
+            self.eval_step = make_mae_eval_step(model, cfg)
+        else:
+            self.train_step = make_train_step(model, self.optimizer, cfg,
+                                              accum_steps=cfg.accum_steps)
+            self.eval_step = make_eval_step(model, cfg)
+        self.scheduler = ReduceLROnPlateau(cfg.patience, cfg.factor)
+        self.checkpoint_manager = checkpoint_manager
+        self.step_checkpoint_manager = step_checkpoint_manager
+        self._epoch = 0
+        self._ckpt_mark = 0
+        self.writer = writer
+        self.best_loss = float("inf")
+        self.progress = progress
+        self.throughput = Throughput(num_chips=1, device=self.device)
+        self.train_store, self.valid_store = train_store, valid_store
+
+    # -- batches -----------------------------------------------------------
+    def _fetch_every(self, train: bool) -> int:
+        """How many losses are read at once: 1 where the batch scheduler
+        or the progress bar needs each one, else ``metric_fetch_every``,
+        widened to ``steps_per_call`` on the store path."""
+        cfg = self.cfg
+        if self.progress or (train and cfg.scheduler_step == "batch"):
+            return 1
+        store = self.train_store if train else self.valid_store
+        k = cfg.steps_per_call if store is not None else 1
+        return max(1, cfg.metric_fetch_every, k)
+
+    def _to_device(self, v) -> torch.Tensor:
+        t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _prepare(self, batch, store=None) -> Dict[str, torch.Tensor]:
+        if store is not None and "indices" in batch:
+            out = store.gather(batch["indices"])
+            out["valid"] = self._to_device(batch["valid"])
+            return out
+        return {k: self._to_device(v) for k, v in batch.items()
+                if k != "caption"}
+
+    def _device_prefetch(self, loader: Iterable[Dict[str, Any]], store=None):
+        """Each batch is sent to the card while the step before it runs."""
+        prev_raw = prev_dev = None
+        for batch in loader:
+            dev = self._prepare(batch, store=store)
+            if prev_dev is not None:
+                yield prev_raw, prev_dev
+            prev_raw, prev_dev = batch, dev
+        if prev_dev is not None:
+            yield prev_raw, prev_dev
+
+    @staticmethod
+    def _count(batch) -> int:
+        if "valid" in batch:
+            return int(np.asarray(batch["valid"]).sum())
+        return int(np.asarray(batch["image"]).shape[0])
+
+    def _progress_bar(self, iterable, desc: str):
+        """tqdm over ``iterable`` with ``progress=True`` (the reference's
+        bars, main.py:53,66,81)."""
+        if not self.progress:
+            return iterable
+        try:
+            from tqdm import tqdm
+        except ImportError:
+            warnings.warn("progress=True needs tqdm, which is not "
+                          "installed: no progress bar")
+            return iterable
+        return tqdm(iterable, desc=desc)
+
+    @staticmethod
+    def _drain_pending(pending: list, meter: AvgMeter, last: float
+                       ) -> Tuple[float, int]:
+        """Read the pending (loss, count) pairs in one device->host copy and
+        fold them into ``meter`` in order; pairs with no valid row are
+        skipped. Returns (newest loss, examples)."""
+        if not pending:
+            return last, 0
+        vals = torch.stack([loss.float() for loss, _ in pending]).tolist()
+        total = 0
+        for v, (_, count) in zip(vals, pending):
+            last = v
+            if count:
+                meter.update(v, count)
+            total += count
+        pending.clear()
+        return last, total
+
+    # -- epochs --------------------------------------------------------------
+    def _maybe_step_checkpoint(self, batches_done: int) -> None:
+        """A rolling save every ``cfg.checkpoint_every_steps`` train
+        batches, keyed by the optimizer step."""
+        every = self.cfg.checkpoint_every_steps
+        mgr = self.step_checkpoint_manager
+        if mgr is None or every <= 0:
+            return
+        mark = batches_done // every
+        if mark <= self._ckpt_mark:
+            return
+        self._ckpt_mark = mark
+        mgr.save(self.state.step, self.state,
+                 meta={"epoch": self._epoch, "batches_done": batches_done,
+                       "scheduler": self.scheduler.state_dict(),
+                       "best_loss": self.best_loss})
+
+    @staticmethod
+    def _skip(loader: Iterable, n: int):
+        """The loader past its first ``n`` batches (mid-epoch resume)."""
+        it = iter(loader)
+        for _ in range(n):
+            if next(it, None) is None:
+                break
+        return it
+
+    def train_epoch(self, loader: Iterable[Dict[str, Any]],
+                    skip_batches: int = 0) -> AvgMeter:
+        cfg = self.cfg
+        meter = AvgMeter("train_loss")
+        every = cfg.checkpoint_every_steps
+        self._ckpt_mark = skip_batches // every if every > 0 else 0
+        batches_done = skip_batches
+        if skip_batches:
+            loader = self._skip(loader, skip_batches)
+        self.throughput.start()
+        fetch_every = self._fetch_every(train=True)
+        bar = self._progress_bar(
+            self._device_prefetch(loader, store=self.train_store), "train")
+        pending = []
+        last = 0.0
+        for raw, batch in bar:
+            count = self._count(raw)
+            batches_done += 1
+            metrics = self.train_step(self.state, batch)
+            pending.append((metrics["loss"], count))
+            self._maybe_step_checkpoint(batches_done)
+            if len(pending) >= fetch_every:
+                last, _ = self._drain_pending(pending, meter, last)
+            if cfg.scheduler_step == "batch":
+                self._scheduler_step(last)
+            self.throughput.update(count)
+            if self.progress and hasattr(bar, "set_postfix"):
+                bar.set_postfix(train_loss=meter.avg,
+                                lr=current_lr(cfg, self.optimizer,
+                                              self.state.step))
+        self._drain_pending(pending, meter, last)
+        self.throughput.stop()
+        return meter
+
+    def valid_epoch(self, loader: Iterable[Dict[str, Any]]) -> AvgMeter:
+        meter = AvgMeter("valid_loss")
+        fetch_every = self._fetch_every(train=False)
+        bar = self._progress_bar(loader, "valid")
+        pending = []
+        for batch in bar:
+            prepared = self._prepare(batch, store=self.valid_store)
+            metrics = self.eval_step(self.state, prepared)
+            pending.append((metrics["loss"], self._count(batch)))
+            if len(pending) >= fetch_every:
+                self._drain_pending(pending, meter, 0.0)
+            if self.progress and hasattr(bar, "set_postfix"):
+                bar.set_postfix(valid_loss=meter.avg)
+        self._drain_pending(pending, meter, 0.0)
+        return meter
+
+    def _scheduler_step(self, metric: float) -> None:
+        set_lr_scale(self.optimizer, self.scheduler.step(metric))
+
+    # -- resume ----------------------------------------------------------------
+    def _restored(self, meta: Dict[str, Any]) -> None:
+        if meta.get("scheduler"):
+            self.scheduler.load_state_dict(meta["scheduler"])
+        if meta.get("best_loss") is not None:
+            self.best_loss = meta["best_loss"]
+
+    def restore(self, step: Optional[int] = None) -> int:
+        """Resume from an epoch checkpoint (None: the newest): the whole
+        train state, the scheduler and the best loss. Returns its epoch."""
+        if self.checkpoint_manager is None:
+            raise ValueError("Trainer has no checkpoint_manager")
+        step = step if step is not None else \
+            self.checkpoint_manager.latest_step()
+        self._restored(self.checkpoint_manager.restore(self.state, step))
+        return int(step)
+
+    def restore_mid_epoch(self, step: Optional[int] = None
+                          ) -> Tuple[int, int]:
+        """Resume from a step checkpoint (None: the newest); returns
+        ``(epoch, batches_done)`` for ``fit(start_epoch=epoch,
+        skip_batches=batches_done)``, which then continues bit for bit."""
+        if self.step_checkpoint_manager is None:
+            raise ValueError("Trainer has no step_checkpoint_manager")
+        meta = self.step_checkpoint_manager.restore(self.state, step)
+        self._restored(meta)
+        return int(meta["epoch"]), int(meta["batches_done"])
+
+    @staticmethod
+    def _call_loader(fn: Callable, epoch: int):
+        """Loader factories take the epoch (seeded shuffles) or nothing;
+        chosen by the signature, not by catching a TypeError."""
+        try:
+            sig = inspect.signature(fn)
+        except (TypeError, ValueError):
+            return fn(epoch)
+        try:
+            sig.bind(epoch)
+        except TypeError:
+            return fn()
+        return fn(epoch)
+
+    def fit(self, train_loader_fn: Callable, valid_loader_fn: Callable,
+            epochs: Optional[int] = None, start_epoch: int = 0,
+            skip_batches: int = 0,
+            eval_fn: Optional[Callable[["Trainer", int], Dict[str, float]]]
+            = None) -> Dict[str, Any]:
+        """Train ``epochs`` (``cfg.epochs``) epochs from ``start_epoch``,
+        the first one past ``skip_batches``; returns the history (losses,
+        ``best_epoch``, ``best_valid_loss``, ``stopped_early``, and each
+        scalar ``eval_fn(trainer, epoch)`` returns)."""
+        cfg = self.cfg
+        history: Dict[str, Any] = {"train_loss": [], "valid_loss": []}
+        best_epoch = start_epoch - 1
+        end = epochs if epochs is not None else cfg.epochs
+        for epoch in range(start_epoch, end):
+            self._epoch = epoch
+            t0 = time.perf_counter()
+            train_meter = self.train_epoch(
+                self._call_loader(train_loader_fn, epoch),
+                skip_batches=skip_batches if epoch == start_epoch else 0)
+            t1 = time.perf_counter()
+            valid_meter = self.valid_epoch(
+                self._call_loader(valid_loader_fn, epoch))
+            t2 = time.perf_counter()
+            # The reference's quirk: with recipe 'py' the epoch scheduler
+            # never steps (main.py:60-61,107), so the lr stays constant.
+            if cfg.scheduler_step == "epoch" and cfg.recipe == "notebook":
+                self._scheduler_step(valid_meter.avg)
+            history["train_loss"].append(train_meter.avg)
+            history["valid_loss"].append(valid_meter.avg)
+            is_best = valid_meter.avg < self.best_loss
+            if is_best:
+                self.best_loss = valid_meter.avg
+                best_epoch = epoch
+            last = end - 1
+            every = cfg.checkpoint_every
+            due = every > 0 and (is_best or epoch == last
+                                 or (epoch + 1) % every == 0)
+            if self.checkpoint_manager is not None and due:
+                self.checkpoint_manager.save(
+                    epoch=epoch, state=self.state,
+                    metrics={"valid_loss": valid_meter.avg},
+                    scheduler=self.scheduler.state_dict(),
+                    best_loss=self.best_loss)
+            t3 = time.perf_counter()
+            scalars = {
+                "loss/train": train_meter.avg,
+                "loss/val": valid_meter.avg,
+                "lr": current_lr(cfg, self.optimizer, self.state.step),
+                "throughput/examples_per_sec_per_chip":
+                    self.throughput.examples_per_sec_per_chip,
+                "time/train_s": round(t1 - t0, 3),
+                "time/valid_s": round(t2 - t1, 3),
+                "time/ckpt_s": round(t3 - t2, 3),
+            }
+            stopping = (cfg.early_stop_patience > 0
+                        and epoch - best_epoch >= cfg.early_stop_patience)
+            if eval_fn is not None and (epoch == last or stopping
+                                        or (epoch + 1) % cfg.eval_every == 0):
+                extra = eval_fn(self, epoch) or {}
+                scalars["time/eval_s"] = round(time.perf_counter() - t3, 3)
+                scalars.update(extra)
+                for k, v in extra.items():
+                    history.setdefault(k, []).append(v)
+            if self.writer is not None:
+                self.writer.write_scalars(epoch, scalars)
+            if stopping:
+                history["stopped_early"] = True
+                break
+        history["best_epoch"] = best_epoch
+        history["best_valid_loss"] = self.best_loss
+        return history

@@ -26,12 +26,19 @@ before the update:
   trainable gradients by ``min(1, max / (norm + 1e-6))``, ``norm`` their
   global L2 norm (frozen parameters have no gradient to count), on the
   card: nothing waits for it;
-* every group's lr is set to ``lr_at(cfg, peak, count)``, ``count`` the
-  updates done before this one, as optax evaluates a schedule (0 on the
-  first update, so a warmup's first update has lr 0). Host arithmetic.
+* every group's lr is set to ``lr_at(cfg, peak, count) * lr_scale``,
+  ``count`` the updates done before this one, as optax evaluates a
+  schedule (0 on the first update, so a warmup's first update has lr 0).
+  Host arithmetic.
 
-The LR scale of the JAX package's plateau scheduler starts at 1 and the
-recipe-``py`` scheduler never steps, so it is left out.
+``lr_scale`` is the plateau scheduler's scale (``ReduceLROnPlateau``,
+``set_lr_scale``; 1 at the start). JAX multiplies the whole update by it
+after AdamW, LAMB or Lion (``scale_by_dynamic``, last in the chain); for
+all three that is the lr times the scale, since each scales its whole
+step, the decay included, by the lr. It is stored in every parameter
+group, so the optimizer's ``state_dict`` (and a checkpoint) carries it,
+and it is folded into the lr in the schedule hook, which sets the lr
+before every update.
 """
 
 from __future__ import annotations
@@ -91,14 +98,66 @@ def lr_at(cfg: Config, peak: float, count: int) -> float:
     return peak * 0.5 * (1.0 + math.cos(math.pi * done / span))
 
 
+def get_lr_scale(optimizer: torch.optim.Optimizer) -> float:
+    """The plateau scale the optimizer's updates run at."""
+    return float(optimizer.param_groups[0]["lr_scale"])
+
+
+def set_lr_scale(optimizer: torch.optim.Optimizer, scale: float) -> None:
+    """Set the plateau scale of every group (the next update's lr is its
+    schedule's times ``scale``)."""
+    for group in optimizer.param_groups:
+        group["lr_scale"] = float(scale)
+
+
 def current_lr(cfg: Config, optimizer: Optional[torch.optim.Optimizer] = None,
                step: Optional[int] = None) -> float:
-    """The first parameter group's lr at ``step`` (0 when not given), as the
-    JAX package's ``current_lr``. The plateau scale that JAX reads from the
-    optimizer state is not ported (it is 1), so ``optimizer`` is unused."""
-    del optimizer
+    """The first parameter group's lr at ``step`` (0 when not given) times
+    ``optimizer``'s plateau scale (1 without an optimizer), as the JAX
+    package's ``current_lr``."""
     peak = cfg.lr if cfg.recipe == "py" else cfg.head_lr
-    return lr_at(cfg, peak, 0 if step is None else step)
+    scale = 1.0 if optimizer is None else get_lr_scale(optimizer)
+    return lr_at(cfg, peak, 0 if step is None else step) * scale
+
+
+class ReduceLROnPlateau:
+    """torch's ``ReduceLROnPlateau(mode='min')`` on an lr *scale*, as the
+    JAX package's: ``step(metric)`` returns the scale to install with
+    ``set_lr_scale``. The reference builds it with ``patience=2``,
+    ``factor=0.5`` (``Config.patience``, ``Config.factor``)."""
+
+    def __init__(self, patience: int = 2, factor: float = 0.5,
+                 threshold: float = 1e-4, min_scale: float = 0.0):
+        self.patience = patience
+        self.factor = factor
+        self.threshold = threshold
+        self.min_scale = min_scale
+        self.best = float("inf")
+        self.num_bad_epochs = 0
+        self.scale = 1.0
+
+    def is_better(self, metric: float) -> bool:
+        return metric < self.best * (1.0 - self.threshold)
+
+    def step(self, metric: float) -> float:
+        if self.is_better(metric):
+            self.best = metric
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.num_bad_epochs > self.patience:
+            self.scale = max(self.scale * self.factor, self.min_scale)
+            self.num_bad_epochs = 0
+        return self.scale
+
+    def state_dict(self) -> dict:
+        return {"best": self.best, "num_bad_epochs": self.num_bad_epochs,
+                "scale": self.scale}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.best = d["best"]
+        self.num_bad_epochs = d["num_bad_epochs"]
+        self.scale = d["scale"]
 
 
 @torch.no_grad()
@@ -212,7 +271,8 @@ def make_optimizer(cfg: Config, model: nn.Module) -> torch.optim.Optimizer:
     """``cfg.optimizer`` over ``model``'s trainable parameters with
     ``cfg.recipe``'s per-group peak lr and weight decay, the schedule and
     the clip as step pre-hooks (module docstring). Each group keeps its
-    ``peak_lr`` and the ``count`` of updates done."""
+    ``peak_lr``, the ``count`` of updates done and the plateau
+    ``lr_scale``."""
     _check_schedule(cfg)
     if cfg.recipe == "py":
         hyper = {"head": (cfg.lr, cfg.weight_decay),
@@ -232,7 +292,7 @@ def make_optimizer(cfg: Config, model: nn.Module) -> torch.optim.Optimizer:
         if label != "frozen":
             members[label].append(param)
     groups = [dict(params=members[label], lr=lr_at(cfg, lr, 0), peak_lr=lr,
-                   count=0, weight_decay=wd, name=label)
+                   count=0, lr_scale=1.0, weight_decay=wd, name=label)
               for label, (lr, wd) in hyper.items() if members[label]]
     optimizer = _build(cfg, groups)
     if cfg.grad_clip_norm > 0:
@@ -243,7 +303,8 @@ def make_optimizer(cfg: Config, model: nn.Module) -> torch.optim.Optimizer:
 
     def schedule(opt, args, kwargs):
         for group in opt.param_groups:
-            group["lr"] = lr_at(cfg, group["peak_lr"], group["count"])
+            group["lr"] = (lr_at(cfg, group["peak_lr"], group["count"])
+                           * group["lr_scale"])
             group["count"] += 1
 
     optimizer.register_step_pre_hook(schedule)

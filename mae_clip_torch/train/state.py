@@ -14,12 +14,20 @@ each trainable parameter by name, on the model's device, equal to the
 parameters at creation (as JAX's ``ema_params``). ``update_ema`` moves it
 towards the live parameters after each update; frozen parameters are
 neither copied nor averaged (an eval on the EMA weights reads them live).
+Buffers (a ResNet's BatchNorm running statistics) are not averaged either:
+an eval on the EMA weights reads the live ones, as JAX's.
+
+``state_dict`` / ``load_state_dict`` hold everything a resumed run needs
+to continue bit for bit: the step and seed, the model's ``state_dict``
+(parameters and BatchNorm buffers), the optimizer's (moments, counts, the
+plateau scale), ``generator``'s state, the EMA, and torch's own RNG states
+(the CPU's and, on the card, the card's), which dropout draws from.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -79,3 +87,30 @@ class TrainState:
             1, np.uint64)[0]
         return torch.Generator(device=self.generator.device).manual_seed(
             int(mixed) >> 1)
+
+    def state_dict(self) -> Dict[str, Any]:
+        device = self.generator.device
+        return {"step": self.step, "seed": self.seed,
+                "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state(),
+                "ema": self.ema,
+                "cpu_rng": torch.get_rng_state(),
+                "cuda_rng": (torch.cuda.get_rng_state(device)
+                             if device.type == "cuda" else None)}
+
+    @torch.no_grad()
+    def load_state_dict(self, d: Dict[str, Any]) -> None:
+        """Restore ``state_dict()``'s contents in place (the model's and
+        the optimizer's tensors stay the objects the steps hold)."""
+        self.model.load_state_dict(d["model"])
+        self.optimizer.load_state_dict(d["optimizer"])
+        self.step, self.seed = int(d["step"]), int(d["seed"])
+        self.generator.set_state(d["generator"])
+        if (self.ema is None) != (d["ema"] is None):
+            raise ValueError("the checkpoint and the state disagree on EMA")
+        for name, e in (self.ema or {}).items():
+            e.copy_(d["ema"][name])
+        torch.set_rng_state(d["cpu_rng"])
+        if d["cuda_rng"] is not None and self.generator.device.type == "cuda":
+            torch.cuda.set_rng_state(d["cuda_rng"], self.generator.device)

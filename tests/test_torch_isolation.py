@@ -8,6 +8,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -49,7 +50,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
     (the kernels build at their first launch)."""
     code = ("import sys, mae_clip_torch, mae_clip_torch.serve, "
             "mae_clip_torch.models, mae_clip_torch.interop.from_jax, "
-            "mae_clip_torch.ops.attention, mae_clip_torch.train; "
+            "mae_clip_torch.ops.attention, mae_clip_torch.train, "
+            "mae_clip_torch.data.device_store; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -81,6 +83,8 @@ def test_config_overrides_match_jax():
 def test_entry_points_default_to_the_card(monkeypatch):
     """Without a card, the default device raises instead of running on the
     CPU; device='cpu' must be asked for."""
+    from mae_clip_torch.data.device_store import (DeviceStore,
+                                                  build_device_store)
     from mae_clip_torch.device import resolve_device
     from mae_clip_torch.models import CLIPModel, DistilBertConfig, ViTConfig
 
@@ -92,6 +96,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
                                         hidden_dim=32),
                   ViTConfig(image_size=16, patch_size=8, dim=16, depth=1,
                             n_heads=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CLIPModel(torch_config.coco_full_config(),
+                  DistilBertConfig(dim=16, n_layers=1, n_heads=2,
+                                   hidden_dim=32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceStore({"image": np.zeros((2, 4, 4, 3), np.uint8)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_device_store(None, images=np.zeros((2, 4, 4, 3), np.uint8))
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -238,9 +238,9 @@ def test_sincos_and_patchify_match_jax():
 
 
 def test_unported_paths_raise():
-    """The ResNet50 tower is not ported yet and raises; both MAE decoders
-    run: the MAE-paper 'full' one predicts every patch, the 'cross' one the
-    masked patches."""
+    """The ResNet50 tower is ported and a ResNet CLIP builds on the CPU;
+    both MAE decoders run: the MAE-paper 'full' one predicts every patch,
+    the 'cross' one the masked patches."""
     _, tcfg = _configs(dict(mae=dict(enabled=True, decoder_style="full",
                                      decoder_dim=16, decoder_depth=1,
                                      decoder_heads=2)))
@@ -254,10 +254,11 @@ def test_unported_paths_raise():
         tcfg.mae, decoder_style="cross")), DistilBertConfig(**TEXT),
         ViTConfig(**VIT), device="cpu")
     assert cross.image_encoder(img).pred_patches.shape == (1, 3, 192)
-    with pytest.raises(NotImplementedError):
-        CLIPModel(tcfg.replace(model_name="resnet50",
-                               mae=torch_config.MAEConfig()),
-                  device="cpu")
+    resnet = CLIPModel(tcfg.replace(model_name="resnet50",
+                                    mae=torch_config.MAEConfig()),
+                       DistilBertConfig(**TEXT), device="cpu")
+    assert resnet.image_encoder.out_dim == 2048
+    assert resnet.encode_image(torch.zeros(1, 32, 32, 3)).shape == (1, 2048)
 
 
 def test_seeded_init_is_reproducible():

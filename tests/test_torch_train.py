@@ -520,13 +520,17 @@ def _with_logit(params):
 
 
 def test_unported_options_raise(setup):
-    """What is still not ported raises: the ResNet50 tower."""
+    """The ResNet50 tower is ported: a ResNet CLIP builds on the CPU (the
+    full tower, 2048-d into the image head). uint8 sources at another size
+    are cropped in the step, and text caching needs a frozen eval-mode
+    tower."""
     _, tcfg, _, params = setup
     tmodel = _torch_model(tcfg, params)
     opt = make_optimizer(tcfg, tmodel)
-    with pytest.raises(NotImplementedError):
-        CLIPModel(tcfg.replace(model_name="resnet50",
-                               mae=torch_config.MAEConfig()), device="cpu")
+    resnet = CLIPModel(tcfg.replace(model_name="resnet50",
+                                    mae=torch_config.MAEConfig()),
+                       DistilBertConfig(**TEXT), device="cpu")
+    assert resnet.image_projection.projection.weight.shape == (8, 2048)
     state = TrainState.create(tmodel, opt)
     # uint8 sources at another size than cfg.size are now cropped in the
     # step (ops/augment.py) instead of raising.
